@@ -1,0 +1,140 @@
+"""NTT over Fr and the H-polynomial pipeline.
+
+The PyTorch counterpart of gpu_groth16_prover_3x_tpu/ops/ntt.py (libfqfft's
+radix-2 domain in the reference): radix-2 decimation in time written as
+reshape/concat stages, natural order in and out, no bit-reversal gather.
+Each stage multiplies the odd half by its twiddles with the mont_mul
+kernel (ops/mont_mul.py) and forms E + t, E - t with plain tensor
+add/sub.  Elements are (24, n) int32 Montgomery words.
+
+The twiddle and coset tables are built on the device by repeated
+doubling with the same Montgomery product (log2 n launches), so no
+O(n) Python loop runs on the host.
+"""
+
+import torch
+
+from ..curves.constants import FieldParams, get_root_of_unity
+from . import limbs as L
+from .mont_mul import mont_mul
+
+
+def add_words(ctx: L.MontCtx, a: torch.Tensor, b: torch.Tensor):
+    """(a + b) mod p on word tensors (plain tensor math)."""
+    return L.from_limbs(L.add(ctx, L.to_limbs(a), L.to_limbs(b)))
+
+
+def sub_words(ctx: L.MontCtx, a: torch.Tensor, b: torch.Tensor):
+    """(a - b) mod p on word tensors (plain tensor math)."""
+    return L.from_limbs(L.sub(ctx, L.to_limbs(a), L.to_limbs(b)))
+
+
+def const_words(x: int, n: int, device) -> torch.Tensor:
+    """An integer's words broadcast to (24, n), contiguous."""
+    col = torch.from_numpy(L.int_to_words(x)).to(device)[:, None]
+    return col.expand(L.NWORDS, n).contiguous()
+
+
+def power_table(ctx: L.MontCtx, base: int, count: int, device,
+                mul=mont_mul) -> torch.Tensor:
+    """(24, count) Montgomery words of base^i, i = 0 .. count-1."""
+    out = torch.empty((L.NWORDS, count), dtype=torch.int32, device=device)
+    out[:, 0] = torch.from_numpy(L.int_to_words(ctx.r)).to(device)
+    k = 1
+    while k < count:
+        m = min(k, count - k)
+        step = const_words(ctx.mont(pow(base, k, ctx.p)), m, device)
+        out[:, k:k + m] = mul(ctx, out[:, :m].contiguous(), step)
+        k += m
+    return out
+
+
+class NttPlan:
+    """Tables for one (field, n) forward + inverse NTT pair on a device."""
+
+    def __init__(self, fp: FieldParams, n: int, device, mul=mont_mul):
+        if n & (n - 1):
+            raise ValueError(f"NTT size {n} is not a power of two")
+        self.fp = fp
+        self.n = n
+        self.device = torch.device(device)
+        self.ctx = L.MontCtx(fp.p)
+        self.mul = mul
+        p = fp.p
+        omega = get_root_of_unity(fp, n)
+        g = fp.multiplicative_generator
+        half = max(n // 2, 1)
+        self.tw_fwd = power_table(self.ctx, omega, half, device, mul)
+        self.tw_inv = power_table(self.ctx, pow(omega, -1, p), half, device,
+                                  mul)
+        self.coset = power_table(self.ctx, g, n, device, mul)
+        self.coset_inv = power_table(self.ctx, pow(g, -1, p), n, device, mul)
+        self.n_inv = self.ctx.mont(pow(n, -1, p))
+        # Z on the coset is the constant g^n - 1
+        self.z_coset_inv = self.ctx.mont(pow(pow(g, n, p) - 1, -1, p))
+
+    def scale(self, x: torch.Tensor, c: int) -> torch.Tensor:
+        """x times a Montgomery-form constant."""
+        return self.mul(self.ctx, x, const_words(c, x.shape[1], x.device))
+
+
+def ntt(plan: NttPlan, x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
+    """In-field DFT y_k = sum_j x_j omega^(jk) on (24, n) words."""
+    ctx = plan.ctx
+    n = x.shape[1]
+    logn = n.bit_length() - 1
+    v = x.reshape(L.NWORDS, 1, n)
+    for lvl in range(logn - 1, -1, -1):
+        _, mp, g2 = v.shape
+        v = v.reshape(L.NWORDS, mp, 2, g2 // 2)
+        E, O = v[:, :, 0, :], v[:, :, 1, :]
+        w = tw[:, ::(1 << lvl)][:, :mp]
+        w = w[:, :, None].expand(L.NWORDS, mp, g2 // 2)
+        t = plan.mul(ctx, O.reshape(L.NWORDS, -1).contiguous(),
+                     w.reshape(L.NWORDS, -1).contiguous())
+        t = t.reshape(L.NWORDS, mp, g2 // 2)
+        Ec = E.contiguous()
+        v = torch.cat([add_words(ctx, Ec, t), sub_words(ctx, Ec, t)], dim=1)
+    return v.reshape(L.NWORDS, n)
+
+
+def intt(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:
+    return plan.scale(ntt(plan, x, plan.tw_inv), plan.n_inv)
+
+
+def coset_fft(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:
+    """FFT on the coset g*<omega> (basic_radix2_domain.tcc:84-89)."""
+    return ntt(plan, plan.mul(plan.ctx, x, plan.coset), plan.tw_fwd)
+
+
+def icoset_fft(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:
+    """Inverse coset FFT (basic_radix2_domain.tcc:91-97)."""
+    return plan.mul(plan.ctx, intt(plan, x), plan.coset_inv)
+
+
+def divide_by_z_on_coset(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:
+    """Multiply by Z(g omega^i)^-1 = (g^n - 1)^-1, constant on the coset
+    (basic_radix2_domain.tcc:126-134)."""
+    return plan.scale(x, plan.z_coset_inv)
+
+
+def compute_h(plan: NttPlan, ca, cb, cc):
+    """The witness-map H pipeline (libsnark/main.cpp:89-148): iFFT then
+    coset FFT of a, b and c, H = a*b - c on the coset, divide by Z, inverse
+    coset FFT.  Inputs (24, n) Montgomery words.
+
+    Returns (h_mont, h_std): the Montgomery coefficients and the
+    standard-domain values (the H MSM's scalars), both (24, n)."""
+    ctx = plan.ctx
+    a = coset_fft(plan, intt(plan, ca))
+    b = coset_fft(plan, intt(plan, cb))
+    h = plan.mul(ctx, a, b)
+    del a, b
+    c = coset_fft(plan, intt(plan, cc))
+    h = sub_words(ctx, h, c)
+    del c
+    h = icoset_fft(plan, divide_by_z_on_coset(plan, h))
+    # x*R -> x: a Montgomery product with the plain integer 1 (the output
+    # is already canonical, so no extra subtract as in fp.tcc from_monty)
+    h_std = plan.mul(ctx, h, const_words(1, h.shape[1], h.device))
+    return h, h_std

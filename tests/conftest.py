@@ -57,3 +57,5 @@ def rng():
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-process / long-compile tests")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips without one)")
