@@ -7,7 +7,9 @@ Phases (any failure exits non-zero before the result line):
      print the ptxas register/spill report, the card's name and power
      limit;
   2. hold every kernel against its plain PyTorch version on the card, on
-     random canonical inputs from a numpy seed: exact equality;
+     random canonical inputs from a numpy seed: exact equality; time the
+     group kernels also at the widths of the halving reduction's first
+     level in the MNT4753 2^20 proof (G1 192 x 2^14 lanes, Fq2 48 x 2^14);
   3. sha gate: `gpu <CURVE> compute` on the committed fixtures of
      tests/data/torch_port must reproduce the committed proof hashes;
   4. the main path at full size: one MNT4753 proof at d + 1 = 2^20 (the
@@ -16,7 +18,13 @@ Phases (any failure exits non-zero before the result line):
      synthetic parameters with known discrete logs, through prove_files; A, B and C are checked against the known logs, and the
      H polynomial of the kernels against the plain H pipeline on the card.
      The launch counts are set to 0 just before each proof and read just
-     after it: every kernel of the path must have launched in each.
+     after it: every kernel of the path must have launched in each.  CUDA
+     events around the MSM's calls of ec_add, ec_dbl and msm_scan sum each
+     kernel's device time within the proof, per group configuration;
+  5. the streamed MSM: msm_window_sums_streamed on MNT4753 G1 with a forced
+     block size (2^16 points in 4 blocks of 2^14, signed digits, c = 16,
+     two fused MSMs) must finalise to the same group elements as the
+     unstreamed pass.
 The last lines are the kernel JSON, the card line and the result line.
 """
 
@@ -172,16 +180,26 @@ def check_mont_mul(rng, n: int, results: dict) -> None:
         bnd, by = bound_ms(n * MADS_PER_FQ_MUL, n * 3 * 96)
         log(f"mont_mul prime {ctx.prime_id} n={n}: kernel {ms:.4f} ms, "
             f"plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})")
-        if ctx.prime_id == 1:   # Fq of MNT4753 = Fr of MNT6753
-            continue
-        results["mont_mul"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
-                                   bound_by=by, max_abs_err=err,
-                                   shape=f"(24, {n})")
+        results["mont_mul", ctx.prime_id] = dict(
+            ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+            max_abs_err=err, shape=f"(24, {n})",
+            config=f"prime {ctx.prime_id}")
+
+
+GROUPS = ((MNT4753, "g1"), (MNT4753, "g2"), (MNT6753, "g1"), (MNT6753, "g2"))
+# lanes of the halving reduction's first level in the MNT4753 2^20 proof:
+# (768 / 16 windows) x 4 fused MSMs (G1) or 1 (G2) groups of 2^15 buckets,
+# paired once
+PATH_LANES = {0: 192 << 14, 1: 48 << 14}
+
+
+def config_name(cops) -> str:
+    field = {1: "Fq", 2: "Fq2", 3: "Fq3"}[cops.deg]
+    return f"{cops.curve.name} {cops.group.upper()} ({field})"
 
 
 def check_group(rng, n: int, results: dict) -> None:
-    for curve, group in ((MNT4753, "g1"), (MNT4753, "g2"),
-                         (MNT6753, "g1"), (MNT6753, "g2")):
+    for curve, group in GROUPS:
         cops = get_curve_ops(curve, group)
         deg = cops.deg
         P = torch.from_numpy(rand_points(rng, cops, n, 3)).to(DEV)
@@ -207,10 +225,29 @@ def check_group(rng, n: int, results: dict) -> None:
                                n * ncoords * deg * 96)
             log(f"{name} {curve.name} {group} n={n}: kernel {ms:.3f} ms, "
                 f"plain {plain:.2f} ms, bound {bnd:.4f} ms ({by})")
-            if cops.cfg == 0:
-                results[name] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
-                                     bound_by=by, max_abs_err=err,
-                                     shape=f"G1 x {n}")
+            results[name, cops.cfg] = dict(
+                ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                max_abs_err=err, shape=f"{n} points",
+                config=config_name(cops))
+        del P, Q, xy
+        if cops.cfg not in PATH_LANES:
+            continue
+        # the same kernels where the main path launches them widest
+        wide = PATH_LANES[cops.cfg]
+        P = torch.from_numpy(rand_points(rng, cops, n, 3)).to(DEV)
+        P = P.repeat(1, 1, wide // n).contiguous()
+        Q = P.roll(5, -1).contiguous()
+        for name, op, kern, ncoords in (
+                ("ec_add", "add", lambda: GK.ec_add(cops, P, Q), 9),
+                ("ec_dbl", "dbl", lambda: GK.ec_dbl(cops, P), 6)):
+            ms = cuda_ms(kern, 3)
+            bnd, by = bound_ms(wide * FQ_MULS[op][deg] * MADS_PER_FQ_MUL,
+                               wide * ncoords * deg * 96)
+            log(f"{name} {curve.name} {group} n={wide} (reduction, first "
+                f"level): kernel {ms:.3f} ms, bound {bnd:.4f} ms ({by})")
+            results[name, cops.cfg].update(
+                path_shape=f"{wide} points", path_ms=ms, path_bound_ms=bnd)
+        del P, Q
 
 
 def scan_inputs(rng, cops, S: int, B: int, nrows: int):
@@ -252,10 +289,9 @@ def check_scan(rng, S: int, widths: dict, results: dict) -> None:
         log(f"msm_scan {curve.name} {group} S={S} B={B}: kernel {ms:.2f} "
             f"ms, plain {plain:.1f} ms, bound {bnd:.3f} ms ({by}), "
             f"{adds} mixed adds")
-        if cops.cfg == 0:
-            results["msm_scan"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
-                                       bound_by=by, max_abs_err=err,
-                                       shape=f"S={S}, B={B}")
+        results["msm_scan", cops.cfg] = dict(
+            ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+            max_abs_err=err, shape=f"S={S}, B={B}", config=config_name(cops))
 
 
 # -- phase 3: fixture sha gate --------------------------------------------------------
@@ -348,6 +384,84 @@ def read_proof(path: str, curve):
     return a, b, c
 
 
+class MsmKernelTimer:
+    """CUDA events around the MSM's calls of its three kernel wrappers
+    (ops/msm.py looks ec_add, ec_dbl and msm_scan up in its own module at
+    each call), summed per wrapper and group configuration.  The events
+    enclose the wrapper, so a sum includes the wrapper's small tensor
+    conversions beside its kernel."""
+
+    NAMES = ("ec_add", "ec_dbl", "msm_scan")
+
+    def __init__(self):
+        self.events = []
+        self.saved = {}
+
+    def _timed(self, name, fn):
+        def call(cops, *args, **kwargs):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(cops, *args, **kwargs)
+            e1.record()
+            self.events.append((name, cops.cfg, e0, e1))
+            return out
+        return call
+
+    def __enter__(self):
+        for name in self.NAMES:
+            self.saved[name] = getattr(M, name)
+            setattr(M, name, self._timed(name, self.saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(M, name, fn)
+
+    def totals(self) -> dict:
+        """(name, cfg) -> (calls, summed device ms)."""
+        torch.cuda.synchronize()
+        out = {}
+        for name, cfg, e0, e1 in self.events:
+            calls, ms = out.get((name, cfg), (0, 0.0))
+            out[name, cfg] = (calls + 1, ms + e0.elapsed_time(e1))
+        return out
+
+
+def streamed_msm(rng, n=1 << 16, blk=1 << 14, c=16,
+                 chunk=M.DEFAULT_CHUNK) -> None:
+    """Phase 5: the streamed MSM against the unstreamed pass."""
+    curve = MNT4753
+    cops = get_curve_ops(curve, "g1")
+    hg, g1 = HE.g1_group(curve), HE.g1_generator(curve)
+    base = np.stack([_affine_words(hg, hg.mul(3 + 7 * j, g1), 1, curve.fq.p)
+                     for j in range(NBASE)])
+    rows = torch.from_numpy(base[np.arange(n) % NBASE]).to(DEV)
+    rows[::97, 24:] = 0                                  # infinity rows
+    keys = torch.from_numpy(rand_canon(rng, curve.fr.p, (n,))).to(DEV)
+    seg = (torch.arange(n, device=DEV) >= n // 2).long()
+    scans = M.MSM_SCAN.launches
+    ws_s = M.msm_window_sums_streamed(cops, keys, rows, chunk, c, seg, 2,
+                                      blk, True)
+    scans_s = M.MSM_SCAN.launches - scans
+    ws_u = M.msm_window_sums(cops, keys, rows, chunk, c, seg, 2, True)
+    scans_u = M.MSM_SCAN.launches - scans - scans_s
+    torch.cuda.synchronize()
+    if scans_s != (n // blk) * scans_u:
+        raise AssertionError(f"streamed MSM: {scans_s} scan launches for "
+                             f"{n // blk} blocks, {scans_u} unstreamed")
+    got, want = ([M.finalize_msm(hg, w, c)
+                  for w in M.window_sums_to_host(cops, ws, 2)]
+                 for ws in (ws_s, ws_u))
+    for i, (a, b) in enumerate(zip(got, want)):
+        if hg.is_zero(a) or not hg.equal(a, b):
+            raise AssertionError(f"streamed MSM {i} differs from the "
+                                 f"unstreamed pass")
+    log(f"streamed MSM: {n} points in {n // blk} blocks of {blk}, signed, "
+        f"c = {c}, 2 fused MSMs: {scans_s} scan launches, equal to the "
+        f"unstreamed pass ({scans_u} scan launches)")
+
+
 def full_proof(curve, log2: int, workdir: str, rng):
     t0 = time.time()
     params, inp, ks, logs, (w, ca, cb, cc, r_in) = write_synthetic(
@@ -360,9 +474,11 @@ def full_proof(curve, log2: int, workdir: str, rng):
     for k in COUNTERS.values():
         k.launches = 0
     t1 = time.time()
-    GP.prove_files(curve, params, inp, out, device=DEV)
+    with MsmKernelTimer() as timer:
+        GP.prove_files(curve, params, inp, out, device=DEV)
     wall = time.time() - t1
     launches = {n: k.launches for n, k in COUNTERS.items()}
+    in_proof = timer.totals()
     peak = torch.cuda.max_memory_allocated()
     laps = profiling.last_laps()
     log(f"{curve.name} 2^{log2}: prove_files {wall:.2f} s, peak device "
@@ -370,6 +486,9 @@ def full_proof(curve, log2: int, workdir: str, rng):
     for name, dt in laps.items():
         log(f"  phase {name}: {dt:.3f} s")
     log(f"  launches: {launches}")
+    for (name, cfg), (calls, ms) in sorted(in_proof.items()):
+        log(f"  in the proof: {name} cfg {cfg}: {calls} calls, "
+            f"{ms:.1f} ms of device time")
     missing = [n for n in PATH_KERNELS if launches[n] <= 0]
     if missing:
         raise AssertionError(f"{curve.name} proof never launched {missing}")
@@ -406,7 +525,7 @@ def full_proof(curve, log2: int, workdir: str, rng):
     log(f"{curve.name} 2^{log2}: A, B, C match the known logs (m = {m}); "
         f"H equals the plain pipeline")
     return dict(wall_s=wall, peak_bytes=peak, phases=laps,
-                launches=launches)
+                launches=launches, in_proof=in_proof)
 
 
 def card_line() -> str:
@@ -414,6 +533,35 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def check_ptxas() -> None:
+    """Print registers, stack and spills per kernel; the lane kernels of
+    the G1 and Fq2 configurations must keep their state in registers."""
+    for unit, kern, regs, stack, spill in build.ptxas_summary(
+            build.ptxas_report()):
+        log(f"ptxas {unit} {kern}: {regs} registers, {stack} B stack, "
+            f"{spill} B spill stores")
+        lane_unit = unit.startswith(("group", "msm_scan"))
+        if lane_unit and unit[-1] in "012" and (stack or spill):
+            raise AssertionError(f"{unit} {kern}: {stack} B of stack, "
+                                 f"{spill} B of spill stores")
+
+
+def kernel_entry(name, cfg, results, launches, in_proof) -> dict:
+    r = results[name, cfg]
+    entry = {"name": name, "route": "cuda", "source": SOURCES[name],
+             "replaces": REPLACES[name], "launches": launches,
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": None,
+             "shape": r["shape"], "config": r["config"]}
+    for key in ("path_shape", "path_ms", "path_bound_ms"):
+        if key in r:
+            entry[key] = r[key]
+    if (name, cfg) in in_proof:
+        entry["proof_ms_total"] = in_proof[name, cfg][1]
+    return entry
 
 
 def main() -> int:
@@ -428,6 +576,7 @@ def main() -> int:
     build.library()
     log(f"build: {time.time() - t0:.1f} s")
     log(build.ptxas_report())
+    check_ptxas()
 
     results = {}
     check_mont_mul(rng, 1 << 20, results)
@@ -444,21 +593,30 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         fixture_gate(workdir)
         log(f"fixture gate done at {time.time() - t0:.1f} s")
+        streamed_msm(rng)
+        log(f"streamed MSM done at {time.time() - t0:.1f} s")
         run4 = full_proof(MNT4753, 20, workdir, rng)
         run6 = full_proof(MNT6753, 15, workdir, rng)
 
     log(f"full-size proofs done at {time.time() - t0:.1f} s")
+    # The first four entries: the kernels of the path on the MNT4753 2^20
+    # proof (G1 shapes; mont_mul over its Fr), launches from that proof.
     kernels = []
     for name in PATH_KERNELS:
-        r = results[name]
-        kernels.append({"name": name, "route": "cuda",
-                        "source": SOURCES[name], "replaces": REPLACES[name],
-                        "launches": run4["launches"][name],
-                        "launches_mnt6753_2p15": run6["launches"][name],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None,
-                        "shape": r["shape"]})
+        entry = kernel_entry(name, 0, results, run4["launches"][name],
+                             run4["in_proof"])
+        entry["launches_mnt6753_2p15"] = run6["launches"][name]
+        kernels.append(entry)
+    # The other group configurations of the group add and the scan, each
+    # with its own launches in the proof that runs it.
+    for cfg, run in ((1, run4), (2, run6), (3, run6)):
+        for name in ("ec_add", "msm_scan"):
+            calls = run["in_proof"].get((name, cfg), (0, 0.0))[0]
+            if calls <= 0:
+                raise AssertionError(f"{name} cfg {cfg} never launched in "
+                                     f"its proof")
+            kernels.append(kernel_entry(name, cfg, results, calls,
+                                        run["in_proof"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if torch.cuda.device_count() != 1:

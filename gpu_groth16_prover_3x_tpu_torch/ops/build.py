@@ -3,13 +3,15 @@
 Each compilation unit gets its own `nvcc` process, all started together,
 to an object for sm_90a: `mont_mul.cu` once, and `group.cu` and
 `msm_scan.cu` once per group configuration (-DG16_CFG=0..3, entry points
-`g16_ec_op_<cfg>` and `g16_msm_scan_<cfg>`), so the deg-3 tower code does
-not serialise the build.  One link step makes `libg16kernels.so`, which is
-loaded with ctypes (plain C entry points, no PyTorch headers).  The build
-runs at first use into `_build/<hash>/` beside the package (listed in
-.gitignore), keyed by the sources, the generated constants header and the
-flags.  `-Xptxas -v` reports each kernel's
-registers and spills; `ptxas_report()` returns that text.
+`g16_ec_op_<cfg>` and `g16_msm_scan_<cfg>`; each configuration fixes
+its own lanes per element at compile time, csrc/field_coop.cuh), so the
+deg-3 tower code does not serialise the build.  One link step makes
+`libg16kernels.so`, which is loaded with ctypes (plain C entry points, no
+PyTorch headers).  The build runs at first use into `_build/<hash>/`
+beside the package (listed in .gitignore), keyed by the sources, the
+generated constants header and the flags.  `-Xptxas -v` reports each
+kernel's registers and spills; `ptxas_report()` returns that text and
+`ptxas_summary()` the figures per kernel.
 
 Every wrapper counts its launches in a `Kernel` object so that a run can
 show that its main path went through the kernel.
@@ -19,9 +21,11 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 from ..curves import constants as K
@@ -29,7 +33,7 @@ from ..curves import constants as K
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("mont_mul.cu", "group.cu", "msm_scan.cu")
-HEADERS = ("field.cuh",)
+HEADERS = ("field.cuh", "field_coop.cuh")
 CFGS = range(4)     # group configurations (ops/ec.py CurveOps.cfg)
 UNITS = (("mont_mul.cu", None),
          *(("group.cu", k) for k in CFGS),
@@ -90,41 +94,45 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _build_key(header: str) -> str:
+def _build_key(header: str, defs: tuple) -> str:
     h = hashlib.sha256()
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(header.encode())
     h.update(" ".join(NVCC_FLAGS).encode())
-    h.update(repr(UNITS).encode())
+    h.update(repr((UNITS, defs)).encode())
     return h.hexdigest()[:16]
 
 
-def _build(out_dir: Path, header: str) -> None:
+def _build(out_dir: Path, header: str, defs: tuple) -> None:
     nvcc = _nvcc()
     tmp = out_dir.with_name(out_dir.name + f".tmp{os.getpid()}")
     shutil.rmtree(tmp, ignore_errors=True)
     tmp.mkdir(parents=True)
     (tmp / "g16_constants.cuh").write_text(header)
-    procs = []
-    for src, cfg in UNITS:
+
+    def compile_unit(unit):
+        src, cfg = unit
         name = Path(src).stem + ("" if cfg is None else str(cfg))
-        defs = [] if cfg is None else [f"-DG16_CFG={cfg}"]
-        cmd = [nvcc, *NVCC_FLAGS, *defs, "-I", str(tmp), "-I", str(CSRC),
+        unit_defs = [] if cfg is None else [f"-DG16_CFG={cfg}", *defs]
+        cmd = [nvcc, *NVCC_FLAGS, *unit_defs, "-I", str(tmp), "-I", str(CSRC),
                "-c", str(CSRC / src), "-o", str(tmp / (name + ".o"))]
-        procs.append((name, time.time(), subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+        t0 = time.time()
+        done = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        return name, time.time() - t0, done
+
+    # one nvcc process per unit, all started together
+    with ThreadPoolExecutor(len(UNITS)) as pool:
+        units = list(pool.map(compile_unit, UNITS))
     report = []
     failed = []
     objs = []
-    for name, t0, proc in procs:
-        out, _ = proc.communicate()
-        report.append(f"== {name} (done {time.time() - t0:.1f} s after "
-                      f"start)\n{out}")
+    for name, seconds, done in units:
+        report.append(f"== {name} (nvcc {seconds:.1f} s)\n{done.stdout}")
         objs.append(str(tmp / (name + ".o")))
-        if proc.returncode != 0:
+        if done.returncode != 0:
             failed.append(name)
     (tmp / "ptxas.txt").write_text("\n".join(report))
     if failed:
@@ -141,19 +149,22 @@ def _build(out_dir: Path, header: str) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _out_dir() -> Path:
+def build_dir(defs: tuple = ()) -> Path:
+    """The directory of the built library, building it at first use.
+    `defs` are extra -D flags for the group and scan units: the tuning
+    script (tune_lanes.py) compiles variants with them; the port
+    itself always builds with none."""
     header = constants_header()
-    out_dir = BUILD_ROOT / _build_key(header)
+    out_dir = BUILD_ROOT / _build_key(header, tuple(defs))
     if not (out_dir / "libg16kernels.so").exists():
         BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-        _build(out_dir, header)
+        _build(out_dir, header, tuple(defs))
     return out_dir
 
 
-@functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """Build (first use) and load the kernel library."""
-    lib = ctypes.CDLL(str(_out_dir() / "libg16kernels.so"))
+def load(out_dir: Path) -> ctypes.CDLL:
+    """Load a built kernel library and declare its entry points."""
+    lib = ctypes.CDLL(str(out_dir / "libg16kernels.so"))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.g16_mont_mul.argtypes = [i32, vp, vp, vp, i64, vp]
     lib.g16_mont_mul.restype = i32
@@ -168,9 +179,36 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def ptxas_report() -> str:
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """Build (first use) and load the kernel library."""
+    return load(build_dir())
+
+
+def ptxas_report(defs: tuple = ()) -> str:
     """The build's nvcc/ptxas output (registers and spills per kernel)."""
-    return (_out_dir() / "ptxas.txt").read_text()
+    return (build_dir(defs) / "ptxas.txt").read_text()
+
+
+def ptxas_summary(report: str) -> list:
+    """(unit, kernel, registers, stack bytes, spill store bytes) per
+    __global__ function of a ptxas report."""
+    out, unit, kern, stack, spill = [], None, None, 0, 0
+    for line in report.splitlines():
+        if line.startswith("== "):
+            unit = line.split()[1]
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kern = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m:
+            stack, spill = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kern:
+            out.append((unit, kern, int(m.group(1)), stack, spill))
+            kern = None
+    return out
 
 
 def check(err: int) -> None:

@@ -1,11 +1,13 @@
 """Kernel 2: whole group operations (csrc/group.cu).
 
 Replaces the TPU kernels `maybe_add` / `maybe_dbl` / `maybe_mixed_add`
-(gpu_groth16_prover_3x_tpu/ops/pallas_group.py, `_build` / `_run`).  On
-the main path `ec_add` and `ec_dbl` carry the MSM's cross-chunk stitch,
-its boundary totals, the halving bucket reduction and the streamed
-window-sum combine; `ec_mixed_add` exposes the scan's inner operation for
-direct tests.
+(gpu_groth16_prover_3x_tpu/ops/pallas_group.py, `_build` / `_run`).  A
+group of 4 (G1) or 8 (Fq2, Fq3) warp lanes runs one point's formula with
+each field element spread over the lanes' registers
+(csrc/field_coop.cuh).  On the main path `ec_add` and `ec_dbl` carry the
+MSM's cross-chunk stitch, its boundary totals, the halving bucket
+reduction and the streamed window-sum combine; `ec_mixed_add` exposes the
+scan's inner operation for direct tests.
 
 Points are (3*deg, 24, B) int32 word tensors (X coefficients, then Y, then
 Z), canonical; affine operands (2*deg, 24, B); the infinity mask (B,)

@@ -9,9 +9,9 @@ Per block of windows:
   2. argsort the points by (window, msm, digit) key, so each bucket is a
      contiguous run;
   3. the bucket scan (csrc/msm_scan.cu): the sorted order is cut into
-     chunks of S points, one CUDA thread per chunk walks its S steps,
-     accumulating same-key points with a mixed add and emitting every
-     finished run total;
+     chunks of S points, one group of 4 or 8 warp lanes per chunk walks
+     its S steps, accumulating same-key points with a mixed add and
+     emitting every finished run total;
   4. runs that cross chunk borders are stitched by a Hillis-Steele carry
      chain over chunk tails (group add kernel), then boundary totals;
   5. run totals scatter into dense bucket tables (keys are unique);
@@ -36,8 +36,8 @@ from . import limbs as L
 from .ec import CurveOps, from_limb_point, to_limb_point
 from .group_kernels import ec_add, ec_dbl
 
-DEFAULT_CHUNK = 128     # S: sequential steps per scan thread
-SCAN_LANES = 1 << 16    # aim for at least this many scan threads a launch
+DEFAULT_CHUNK = 128     # S: sequential steps per scan chunk
+SCAN_LANES = 1 << 16    # aim for at least this many scan chunks a launch
 SCAN_POINTS = 1 << 23   # cap on points (x windows) per scan launch
 REDUCE_LANES = 1 << 23  # cap on bucket lanes per reduction pass
 

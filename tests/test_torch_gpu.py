@@ -100,6 +100,77 @@ def test_scan_kernel_vs_plain(curve, group, signed):
                 M.msm_scan_plain(cops, rows, idx, keys, signs))
 
 
+def edge_values(p: int) -> list:
+    """The operands that break a wrong carry resolve between lanes: 0, 1,
+    p - 1, R mod p, and all-ones words on and around every border of the
+    4-lane and 8-lane splits (words 3, 6, ..., 21)."""
+    out = [0, 1, p - 1, p - 2, (1 << 768) % p, (1 << 736) - 1, 1 << 736,
+           p - (1 << 736)]
+    for w in range(3, 24, 3):
+        lo, hi = 32 * (w - 1), min(32 * (w + 1), 736)
+        out += [((1 << hi) - 1) ^ ((1 << lo) - 1), (1 << (32 * w)) - 1,
+                1 << (32 * w)]
+    assert all(0 <= v < p for v in out)
+    return out
+
+
+def edge_coords(rng, p: int, ncoef: int, n: int) -> torch.Tensor:
+    """(ncoef, 24, n) coordinates drawn from the edge values."""
+    vals = edge_values(p)
+    pick = rng.integers(0, len(vals), size=(ncoef, n))
+    return torch.from_numpy(np.stack(
+        [L.ints_to_words([vals[i] for i in row]) for row in pick]))
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 1000])
+@pytest.mark.parametrize("curve,group", GROUPS, ids=IDS)
+def test_group_kernels_edge_operands(curve, group, n):
+    """Edge coordinates, at widths that are no multiple of the points per
+    block."""
+    dev = card()
+    rng = np.random.default_rng(5)
+    cops = get_curve_ops(curve, group)
+    d = cops.deg
+    P = edge_coords(rng, cops.p, 3 * d, n).to(dev)
+    Q = edge_coords(rng, cops.p, 3 * d, n).to(dev)
+    P[:, :, ::5] = M.identity_words(cops, 1, dev)
+    Q[:, :, 3::7] = P[:, :, 3::7]
+    xy = edge_coords(rng, cops.p, 2 * d, n).to(dev)
+    inf = torch.from_numpy(rng.random(n) < 0.3).to(dev)
+    xy[d:, :, inf] = 0
+    assert torch.equal(GK.ec_add(cops, P, Q), GK.ec_add_plain(cops, P, Q))
+    assert torch.equal(GK.ec_dbl(cops, P), GK.ec_dbl_plain(cops, P))
+    assert torch.equal(GK.ec_mixed_add(cops, P, xy, inf),
+                       GK.ec_mixed_add_plain(cops, P, xy, inf))
+
+
+@pytest.mark.parametrize("B", [1, 31, 33, 1000])
+@pytest.mark.parametrize("curve,group", GROUPS, ids=IDS)
+def test_scan_kernel_neighbours_diverge(curve, group, B):
+    """Neighbouring chunks (groups of one warp) take different branches at
+    the same step: the key changes in chunk b where it repeats in chunk
+    b + 1, an infinity row sits beside a finite one, a negative digit
+    beside a positive one; the rows hold edge coordinates."""
+    dev = card()
+    rng = np.random.default_rng(6)
+    cops = get_curve_ops(curve, group)
+    d, S, nrows = cops.deg, 12, 40
+    rows = edge_coords(rng, cops.p, 2 * d, nrows)
+    rows[d:, :, ::2] = 0                               # even rows: infinity
+    rows = rows.reshape(-1, nrows).t().contiguous().to(dev)
+    b = np.arange(B)[None, :]
+    s = np.arange(S)[:, None]
+    step = ((s + b) % 2 == 0) & (s > 0)                # change beside repeat
+    step[:, 4::9] = False                              # uniform chunks
+    step[:, 5::9] = s > 0                              # all-change chunks
+    keys = torch.from_numpy(np.cumsum(step, 0).astype(np.int32)).to(dev)
+    idx = torch.from_numpy(((s * 3 + b) % nrows).astype(np.int32)).to(dev)
+    signs = torch.from_numpy((s + b) % 3 == 0).to(dev)
+    for sg in (signs, None):
+        assert same(M.msm_scan(cops, rows, idx, keys, sg),
+                    M.msm_scan_plain(cops, rows, idx, keys, sg))
+
+
 @pytest.mark.parametrize("signed", [False, True])
 def test_streamed_msm_on_card_vs_cpu(signed):
     """Two MSMs fused by segments and streamed in 3 padded blocks on the
