@@ -24,13 +24,38 @@ Phases (any failure exits non-zero before the result line):
   5. the streamed MSM: msm_window_sums_streamed on MNT4753 G1 with a forced
      block size (2^16 points in 4 blocks of 2^14, signed digits, c = 16,
      two fused MSMs) must finalise to the same group elements as the
-     unstreamed pass.
+     unstreamed pass;
+  6. the table path through files at MNT6753 2^15: `gpu MNT6753 preprocess`
+     on the phase-4 parameters (about 0.98 GB of tables), then `gpu MNT6753
+     compute` beside the table file: its proof must have the sha256 of the
+     phase-4 Pippenger proof.  Held against their plain versions on the
+     card: ec_mixed_add on the first steps of the table build at its
+     widths (2^15 + 1 and 2^15 - 1 lanes), the Straus tree of the B1 and
+     B2 tables at the widths of the proof's (first level 151 x 2^14
+     lanes) and the affine normalisation, the last also against host
+     inversions;
+  7. the table path at MNT4753 2^20, in memory: multiples_rows builds the
+     B1, B2 and L tables on the card and prove(tables=...) takes the
+     device tensors; A, B and C must match the known logs.  As in phase
+     6, ec_mixed_add at 2^20 + 1 and 2^20 - 1 lanes and the Straus trees
+     at the proof's first-level widths (G1 about 7.3 M lanes, Fq2 about
+     3.7 M) are held against their plain versions.  The table file would
+     be about 25 GB at this size, so writing and reading it back is left
+     to phase 6;
+  8. `gpu MNT4753 serve` at 2^20 with the phase-4 input and a fresh random
+     one: one staging of the parameters, both proofs equal to their
+     known logs.
+Every phase sets the launch counts to 0 before the run it reads and fails
+if a kernel of that run's path never launched.
 The last lines are the kernel JSON, the card line and the result line.
 """
 
+import contextlib
 import hashlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -50,12 +75,18 @@ sys.path.insert(0, ROOT)
 from gpu_groth16_prover_3x_tpu_torch.curves.constants import (  # noqa: E402
     MNT4753, MNT6753, R)
 from gpu_groth16_prover_3x_tpu_torch.host import ec as HE  # noqa: E402
+from gpu_groth16_prover_3x_tpu_torch.host import field as HF  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.models import gpu_prover as GP  # noqa
+from gpu_groth16_prover_3x_tpu_torch.models import \
+    preprocess_device as PD  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.ops import build  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.ops import group_kernels as GK  # noqa
 from gpu_groth16_prover_3x_tpu_torch.ops import limbs as L  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.ops import mont_mul as MM  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.ops import msm as M  # noqa: E402
+from gpu_groth16_prover_3x_tpu_torch.ops import straus as S  # noqa: E402
+from gpu_groth16_prover_3x_tpu_torch.ops.inverse import \
+    to_affine_rows  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.ops.ec import get_curve_ops  # noqa
 from gpu_groth16_prover_3x_tpu_torch.ops.ntt import NttPlan, compute_h  # noqa
 from gpu_groth16_prover_3x_tpu_torch.utils import cli  # noqa: E402
@@ -83,6 +114,7 @@ REPLACES = {
     "mont_mul": "gpu_groth16_prover_3x_tpu/ops/pallas_kernels.py:121",
     "ec_add": "gpu_groth16_prover_3x_tpu/ops/pallas_group.py:267",
     "ec_dbl": "gpu_groth16_prover_3x_tpu/ops/pallas_group.py:267",
+    "ec_mixed_add": "gpu_groth16_prover_3x_tpu/ops/pallas_group.py:267",
     "msm_scan": "gpu_groth16_prover_3x_tpu/ops/pallas_group.py:490",
 }
 SOURCES = {"mont_mul": "gpu_groth16_prover_3x_tpu_torch/csrc/mont_mul.cu",
@@ -94,6 +126,8 @@ COUNTERS = {"mont_mul": MM.MONT_MUL, "ec_add": GK.EC_ADD,
             "ec_dbl": GK.EC_DBL, "ec_mixed_add": GK.EC_MIXED_ADD,
             "msm_scan": M.MSM_SCAN}
 PATH_KERNELS = ("mont_mul", "ec_add", "ec_dbl", "msm_scan")
+BUILD_KERNELS = ("mont_mul", "ec_mixed_add")
+MSM_STRAUS = "MSMs (device: Straus tables + Pippenger A/H)"
 
 
 def log(msg: str) -> None:
@@ -137,6 +171,35 @@ def require_equal(name: str, got, want) -> int:
         raise AssertionError(f"{name}: kernel differs from its plain "
                              f"version (max abs difference {err})")
     return err
+
+
+# The plain group operations hold tens of KB of int64 temporaries a lane
+# (about 40 KB for G1, 110 KB for Fq2): at the table path's widths they
+# run this many lanes at a time.
+PLAIN_LANES = 1 << 15
+
+
+def lanewise(fn):
+    """A plain group operation fn(cops, *operands) applied PLAIN_LANES
+    lanes at a time; operands end in the lane axis."""
+    def call(cops, *ops):
+        n = ops[0].shape[-1]
+        return torch.cat([fn(cops, *(t[..., a:a + PLAIN_LANES]
+                                     for t in ops))
+                          for a in range(0, n, PLAIN_LANES)], -1)
+    return call
+
+
+def cuda_once(fn):
+    """fn() and its device time in ms over one call (CUDA events)."""
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
 
 
 # -- random canonical inputs -----------------------------------------------------
@@ -352,15 +415,21 @@ def write_synthetic(curve, log2: int, workdir: str, rng):
             count, shift = logs[name]
             base = base2 if name == "B2" else base1
             f.write(tile(base, count, shift).tobytes())
-    fr = curve.fr.p
-    w, ca, cb, cc = (rand_canon(rng, fr, (n,)) for n in (m + 1, d1, d1, d1))
-    r_in = int(rng.integers(1, 1 << 62))
     inp = os.path.join(workdir, f"{curve.name}-input")
-    with open(inp, "wb") as f:
+    return params, inp, ks, logs, write_input(curve, log2, inp, rng)
+
+
+def write_input(curve, log2: int, path: str, rng):
+    """A random input file for a 2^log2 domain; returns its values."""
+    d1 = 1 << log2
+    fr = curve.fr.p
+    w, ca, cb, cc = (rand_canon(rng, fr, (n,)) for n in (d1 + 1, d1, d1, d1))
+    r_in = int(rng.integers(1, 1 << 62))
+    with open(path, "wb") as f:
         for a in (w, ca, cb, cc):
             f.write(np.ascontiguousarray(a.T).tobytes())
         f.write((r_in * R % fr).to_bytes(96, "little"))
-    return params, inp, ks, logs, (w, ca, cb, cc, r_in)
+    return w, ca, cb, cc, r_in
 
 
 def known_log(ks, count: int, shift: int, scalars) -> dict:
@@ -384,39 +453,42 @@ def read_proof(path: str, curve):
     return a, b, c
 
 
-class MsmKernelTimer:
-    """CUDA events around the MSM's calls of its three kernel wrappers
-    (ops/msm.py looks ec_add, ec_dbl and msm_scan up in its own module at
-    each call), summed per wrapper and group configuration.  The events
-    enclose the wrapper, so a sum includes the wrapper's small tensor
-    conversions beside its kernel."""
+class KernelTimer:
+    """CUDA events around calls of kernel wrappers, summed per label and
+    group configuration.  `targets` maps a label to (module, attribute):
+    the callers look the wrapper up as that module's attribute at each
+    call (ops/msm.py its own ec_add, ec_dbl and msm_scan; ops/straus.py
+    and models/preprocess_device.py group_kernels.ec_add and
+    ec_mixed_add), so only their calls are timed.  The events enclose the
+    wrapper, so a sum includes its small tensor conversions beside the
+    kernel."""
 
-    NAMES = ("ec_add", "ec_dbl", "msm_scan")
-
-    def __init__(self):
+    def __init__(self, targets: dict):
+        self.targets = targets
         self.events = []
         self.saved = {}
 
-    def _timed(self, name, fn):
+    def _timed(self, label, fn):
         def call(cops, *args, **kwargs):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
             out = fn(cops, *args, **kwargs)
             e1.record()
-            self.events.append((name, cops.cfg, e0, e1))
+            self.events.append((label, cops.cfg, e0, e1))
             return out
         return call
 
     def __enter__(self):
-        for name in self.NAMES:
-            self.saved[name] = getattr(M, name)
-            setattr(M, name, self._timed(name, self.saved[name]))
+        for label, (mod, attr) in self.targets.items():
+            self.saved[label] = getattr(mod, attr)
+            setattr(mod, attr, self._timed(label, self.saved[label]))
         return self
 
     def __exit__(self, *exc):
-        for name, fn in self.saved.items():
-            setattr(M, name, fn)
+        for label, fn in self.saved.items():
+            mod, attr = self.targets[label]
+            setattr(mod, attr, fn)
 
     def totals(self) -> dict:
         """(name, cfg) -> (calls, summed device ms)."""
@@ -426,6 +498,38 @@ class MsmKernelTimer:
             calls, ms = out.get((name, cfg), (0, 0.0))
             out[name, cfg] = (calls + 1, ms + e0.elapsed_time(e1))
         return out
+
+
+MSM_TARGETS = {name: (M, name) for name in ("ec_add", "ec_dbl", "msm_scan")}
+TABLE_TARGETS = {"straus ec_add": (GK, "ec_add"),
+                 "ec_mixed_add": (GK, "ec_mixed_add")}
+
+
+def reset_counts() -> None:
+    for k in COUNTERS.values():
+        k.launches = 0
+
+
+def counts() -> dict:
+    return {n: k.launches for n, k in COUNTERS.items()}
+
+
+def require_launched(what: str, launches: dict, names) -> None:
+    missing = [n for n in names if launches[n] <= 0]
+    if missing:
+        raise AssertionError(f"{what} never launched {missing}")
+
+
+def log_timer(what: str, totals: dict) -> None:
+    for (name, cfg), (calls, ms) in sorted(totals.items(),
+                                           key=lambda kv: str(kv[0])):
+        log(f"  {what}: {name} cfg {cfg}: {calls} calls, {ms:.1f} ms of "
+            f"device time")
+
+
+def sha256(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
 
 
 def streamed_msm(rng, n=1 << 16, blk=1 << 14, c=16,
@@ -462,51 +566,17 @@ def streamed_msm(rng, n=1 << 16, blk=1 << 14, c=16,
         f"unstreamed pass ({scans_u} scan launches)")
 
 
-def full_proof(curve, log2: int, workdir: str, rng):
-    t0 = time.time()
-    params, inp, ks, logs, (w, ca, cb, cc, r_in) = write_synthetic(
-        curve, log2, workdir, rng)
-    log(f"{curve.name} 2^{log2}: synthetic files written in "
-        f"{time.time() - t0:.1f} s")
-    out = os.path.join(workdir, f"{curve.name}-output")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for k in COUNTERS.values():
-        k.launches = 0
-    t1 = time.time()
-    with MsmKernelTimer() as timer:
-        GP.prove_files(curve, params, inp, out, device=DEV)
-    wall = time.time() - t1
-    launches = {n: k.launches for n, k in COUNTERS.items()}
-    in_proof = timer.totals()
-    peak = torch.cuda.max_memory_allocated()
-    laps = profiling.last_laps()
-    log(f"{curve.name} 2^{log2}: prove_files {wall:.2f} s, peak device "
-        f"memory {peak / 2**30:.2f} GiB")
-    for name, dt in laps.items():
-        log(f"  phase {name}: {dt:.3f} s")
-    log(f"  launches: {launches}")
-    for (name, cfg), (calls, ms) in sorted(in_proof.items()):
-        log(f"  in the proof: {name} cfg {cfg}: {calls} calls, "
-            f"{ms:.1f} ms of device time")
-    missing = [n for n in PATH_KERNELS if launches[n] <= 0]
-    if missing:
-        raise AssertionError(f"{curve.name} proof never launched {missing}")
-
-    # H: kernels against the plain pipeline on the card, same inputs
+def expected_proof(curve, log2: int, ks, logs, values):
+    """(A, B, C) of an input from the known logs, with H from the kernels'
+    pipeline on the card; returns (affine points, H words)."""
+    w, ca, cb, cc, r_in = values
     fr = curve.fr
     dev_in = [torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
               for a in (ca, cb, cc)]
     h_k = compute_h(NttPlan(fr, 1 << log2, DEV), *dev_in)
-    h_p = compute_h(NttPlan(fr, 1 << log2, DEV,
-                              mul=MM.mont_mul_plain),
-                    *dev_in)
-    require_equal(f"{curve.name} H pipeline", h_k, h_p)
     h_std = L.words_to_ints(h_k[1].cpu().numpy())
-
     rinv = pow(R, -1, fr.p)
     wstd = [v * rinv % fr.p for v in L.words_to_ints(w)]
-    m = len(wstd) - 1
     sA = known_log(ks, *logs["A"], wstd)
     sB1 = known_log(ks, *logs["B1"], wstd)
     sB2 = known_log(ks, *logs["B2"], wstd)
@@ -517,15 +587,332 @@ def full_proof(curve, log2: int, workdir: str, rng):
     want = (hg1.to_affine(hg1.mul(sA % fr.p, g1)),
             hg2.to_affine(hg2.mul(sB2 % fr.p, g2)),
             hg1.to_affine(hg1.mul((sH + sL + r_in * sB1) % fr.p, g1)))
-    got = read_proof(out, curve)
+    return tuple(tuple(x) for x in want), (h_k, dev_in)
+
+
+def require_proof(what: str, got, want) -> None:
     for name, g, wv in zip("ABC", got, want):
-        if g != tuple(wv):
-            raise AssertionError(f"{curve.name} 2^{log2}: proof {name} "
-                                 f"disagrees with the known logs")
-    log(f"{curve.name} 2^{log2}: A, B, C match the known logs (m = {m}); "
-        f"H equals the plain pipeline")
+        if tuple(g) != tuple(wv):
+            raise AssertionError(f"{what}: proof {name} disagrees with the "
+                                 f"known logs")
+
+
+def full_proof(curve, log2: int, workdir: str, rng):
+    t0 = time.time()
+    params, inp, ks, logs, values = write_synthetic(curve, log2, workdir,
+                                                    rng)
+    log(f"{curve.name} 2^{log2}: synthetic files written in "
+        f"{time.time() - t0:.1f} s")
+    out = os.path.join(workdir, f"{curve.name}-output")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t1 = time.time()
+    with KernelTimer(MSM_TARGETS) as timer:
+        GP.prove_files(curve, params, inp, out, device=DEV)
+    wall = time.time() - t1
+    launches = counts()
+    in_proof = timer.totals()
+    peak = torch.cuda.max_memory_allocated()
+    laps = profiling.last_laps()
+    log(f"{curve.name} 2^{log2}: prove_files {wall:.2f} s, peak device "
+        f"memory {peak / 2**30:.2f} GiB")
+    for name, dt in laps.items():
+        log(f"  phase {name}: {dt:.3f} s")
+    log(f"  launches: {launches}")
+    log_timer("in the proof", in_proof)
+    require_launched(f"{curve.name} proof", launches, PATH_KERNELS)
+
+    # H: kernels against the plain pipeline on the card, same inputs
+    want, (h_k, dev_in) = expected_proof(curve, log2, ks, logs, values)
+    h_p = compute_h(NttPlan(curve.fr, 1 << log2, DEV,
+                            mul=MM.mont_mul_plain), *dev_in)
+    require_equal(f"{curve.name} H pipeline", h_k, h_p)
+    require_proof(f"{curve.name} 2^{log2}", read_proof(out, curve), want)
+    log(f"{curve.name} 2^{log2}: A, B, C match the known logs (m = "
+        f"{1 << log2}); H equals the plain pipeline")
     return dict(wall_s=wall, peak_bytes=peak, phases=laps,
-                launches=launches, in_proof=in_proof)
+                launches=launches, in_proof=in_proof, params=params,
+                input=inp, output=out, sha=sha256(out), want=want, ks=ks,
+                logs=logs, log2=log2)
+
+
+# -- phases 6 to 8: the table path and serving --------------------------------
+
+def normalisation_check(rng, curve, n: int = 300) -> None:
+    """to_affine_rows on the card against its plain version and against
+    host inversions: multiples k*G scaled by a random Z, every 7th point
+    the identity (0 : 1 : 0)."""
+    p, alpha = curve.fq.p, curve.non_residue
+    for group in ("g1", "g2"):
+        cops = get_curve_ops(curve, group)
+        deg = cops.deg
+        hg = HE.g1_group(curve) if group == "g1" else HE.g2_group(curve)
+        gen = HE.g1_generator(curve) if group == "g1" else \
+            HE.g2_generator(curve)
+        coords = [[] for _ in range(3 * deg)]
+        want = []
+        for i in range(n):
+            if i % 7 == 3:
+                X, Y, Z = (0,) * deg, (1,) + (0,) * (deg - 1), (0,) * deg
+                want.append(np.zeros(2 * deg * L.NWORDS, np.int32))
+            else:
+                pt = hg.mul(int(rng.integers(1, 1 << 40)), gen)
+                want.append(_affine_words(hg, pt, deg, p))
+                x, y = hg.to_affine(pt)
+                x, y = (x, y) if deg > 1 else ((x,), (y,))
+                Z = tuple(int(v) % p for v in rng.integers(1, 1 << 62,
+                                                           size=deg))
+                X, Y = HF.e_mul(x, Z, p, alpha), HF.e_mul(y, Z, p, alpha)
+            for k in range(deg):
+                for j, v in enumerate((X, Y, Z)):
+                    coords[j * deg + k].append(v[k] * R % p)
+        P = torch.from_numpy(np.stack([L.ints_to_words(c)
+                                       for c in coords])).to(DEV)
+        got = to_affine_rows(cops, P)
+        require_equal(f"affine normalisation cfg {cops.cfg}", got,
+                      to_affine_rows(cops, P, mul=MM.mont_mul_plain))
+        if not np.array_equal(got.cpu().numpy(), np.stack(want)):
+            raise AssertionError(f"affine normalisation cfg {cops.cfg} "
+                                 f"differs from the host inversion")
+        log(f"affine normalisation {curve.name} {group}: {n} points equal "
+            f"the plain version and the host inversion")
+
+
+def mixed_add_path_check(curve, queries, results: dict) -> None:
+    """ec_mixed_add at the widths of the table build: the first three
+    steps of multiples_rows (identity + P, P + P, 2P + P) on the query's
+    own base rows, kernel against plain (lanewise) on the card.  The
+    first query of each group configuration is also timed."""
+    plain_add = lanewise(GK.ec_mixed_add_plain)
+    for name, rows, group in queries:
+        cops = get_curve_ops(curve, group)
+        xy, inf = PD.affine_operand(cops, rows, DEV)
+        n = xy.shape[-1]
+        acc = M.identity_words(cops, n, DEV)
+        err = 0
+        for step in range(3):
+            got = GK.ec_mixed_add(cops, acc, xy, inf)
+            want, plain = cuda_once(lambda: plain_add(cops, acc, xy, inf))
+            err = max(err, require_equal(
+                f"ec_mixed_add {curve.name} {name} step {step}", got, want))
+            if step < 2:
+                acc = got
+        del got, want
+        r = results["ec_mixed_add", cops.cfg]
+        if "path_shape" in r:
+            r["path_shape"] += f"; {n} points ({name}), equal"
+            log(f"ec_mixed_add {curve.name} {name} n={n}: 3 table-build "
+                f"steps equal the plain version")
+            continue
+        ms = cuda_ms(lambda: GK.ec_mixed_add(cops, acc, xy, inf), 3)
+        deg = cops.deg
+        bnd, _ = bound_ms(n * FQ_MULS["mixed_add"][deg] * MADS_PER_FQ_MUL,
+                          n * 8 * deg * 96)
+        log(f"ec_mixed_add {curve.name} {name} n={n}: 3 table-build steps "
+            f"equal the plain version; kernel {ms:.3f} ms, plain "
+            f"{plain:.1f} ms, bound {bnd:.4f} ms")
+        r.update(path_shape=f"{n} points ({name})", path_ms=ms,
+                 path_plain_ms=plain, path_bound_ms=bnd,
+                 path_max_abs_err=err)
+
+
+def straus_check(rng, curve, tables, npath: int, results: dict) -> None:
+    """straus_window_sums on the first points of the B1 and B2 tables
+    (rows of npath points each), as many points as make the tree's first
+    level at least as wide as in the npath-point MSM of the proof,
+    against the same tree on the plain group add (lanewise) on the
+    card."""
+    nwin = S.num_windows()
+    for group, t in (("g1", tables[0]), ("g2", tables[1])):
+        cops = get_curve_ops(curve, group)
+        path = S.window_block(cops.deg, npath) * (npath // 2)
+        n = min(npath, 2 * -(-path // nwin))
+        first = S.window_block(cops.deg, n) * (n // 2)
+        t = torch.as_tensor(t)
+        sub = t.reshape(31, npath, -1)[:, :n].reshape(31 * n, -1).to(DEV)
+        k = rand_canon(rng, curve.fr.p, (n,))
+        k[:, 0] = 0
+        k[:, 1] = L.int_to_words(curve.fr.p - 1)
+        keys = torch.from_numpy(k).to(DEV)
+        got = S.straus_window_sums(cops, keys, sub)
+        want, plain = cuda_once(lambda: S.straus_window_sums(
+            cops, keys, sub, add=lanewise(GK.ec_add_plain)))
+        err = require_equal(f"straus_window_sums cfg {cops.cfg}", got, want)
+        ms = cuda_ms(lambda: S.straus_window_sums(cops, keys, sub), 3)
+        log(f"straus_window_sums {curve.name} {group} n={n} (first level "
+            f"{first} lanes, the proof's {path}): kernels {ms:.2f} ms, "
+            f"plain {plain:.1f} ms, equal")
+        results["ec_add", cops.cfg].update(
+            straus_shape=f"{n} points x {nwin} windows, first level "
+                         f"{first} lanes (proof {path})",
+            straus_ms=ms, straus_plain_ms=plain, straus_max_abs_err=err)
+        del sub, keys, got, want
+
+
+def table_files_phase(rng, run, workdir: str, results: dict) -> dict:
+    """Phase 6: preprocess and compute through the CLI at MNT6753 2^15."""
+    curve = MNT6753
+    params = GP.load_params(run["params"], curve)
+    mixed_add_path_check(curve, (("B1", params.B1, "g1"),
+                                 ("B2", params.B2, "g2"),
+                                 ("L", params.L, "g1")), results)
+    del params
+    tdir = os.path.join(workdir, "tables")
+    os.mkdir(tdir)
+    os.chdir(tdir)
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with KernelTimer(TABLE_TARGETS) as tb:
+            rc = cli.main(["gpu", curve.name, "preprocess", run["params"],
+                           "--device", DEV])
+            torch.cuda.synchronize()
+        build_s = time.time() - t0
+        build = counts()
+        build_calls = tb.totals()
+        table = os.path.abspath(f"{curve.name}_preprocessed")
+        size = os.path.getsize(table)
+        log(f"{curve.name} 2^{run['log2']} preprocess: {build_s:.2f} s, "
+            f"{size / 1e9:.3f} GB, launches {build}")
+        log_timer("in the table build", build_calls)
+        if rc != 0 or build["ec_mixed_add"] != 93:
+            raise AssertionError(f"preprocess rc {rc}, "
+                                 f"{build['ec_mixed_add']} mixed adds")
+        require_launched("MNT6753 table build", build, BUILD_KERNELS)
+
+        out = os.path.abspath("output-tables")
+        reset_counts()
+        t1 = time.time()
+        with KernelTimer(MSM_TARGETS) as tm, \
+                KernelTimer(TABLE_TARGETS) as tt:
+            rc = cli.main(["gpu", curve.name, "compute", run["params"],
+                           run["input"], out, "--device", DEV])
+        wall = time.time() - t1
+        launches = counts()
+        laps = profiling.last_laps()
+        in_proof = {**tm.totals(), **tt.totals()}
+        log(f"{curve.name} 2^{run['log2']} compute with tables: {wall:.2f} "
+            f"s, launches {launches}")
+        for name in ("load preprocessing", MSM_STRAUS):
+            if name in laps:
+                log(f"  phase {name}: {laps[name]:.3f} s")
+        log_timer("in the table proof", in_proof)
+        require_launched("MNT6753 table proof", launches, PATH_KERNELS)
+        if rc != 0 or sha256(out) != run["sha"]:
+            raise AssertionError("MNT6753 table proof sha256 differs from "
+                                 "the Pippenger proof")
+        require_proof("MNT6753 table proof", read_proof(out, curve),
+                      run["want"])
+        log(f"{curve.name} table proof: sha256 {run['sha']} equals the "
+            f"Pippenger proof; A, B, C match the known logs")
+
+        m = 1 << run["log2"]
+        tables = GP.load_preprocessed(table, curve, m, m - 1)
+        straus_check(rng, curve, tables, m + 1, results)
+        del tables
+        os.remove(table)
+    finally:
+        os.chdir(workdir)
+    normalisation_check(rng, curve)
+    return dict(build_s=build_s, build=build, build_calls=build_calls,
+                wall_s=wall, launches=launches, in_proof=in_proof,
+                phases=laps, bytes=size)
+
+
+def table_memory_phase(rng, run, results: dict) -> dict:
+    """Phase 7: tables built on the card, handed to prove(tables=...)."""
+    curve = MNT4753
+    params = GP.load_params(run["params"], curve)
+    inputs = GP.load_input(run["input"], curve, params.d, params.m)
+    mixed_add_path_check(curve, (("B1", params.B1, "g1"),
+                                 ("B2", params.B2, "g2"),
+                                 ("L", params.L, "g1")), results)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    with KernelTimer(TABLE_TARGETS) as tb:
+        tables = tuple(PD.multiples_rows(curve, group, rows, device=DEV)
+                       for rows, group in ((params.B1, "g1"),
+                                           (params.B2, "g2"),
+                                           (params.L, "g1")))
+        torch.cuda.synchronize()
+    build_s = time.time() - t0
+    build = counts()
+    build_calls = tb.totals()
+    build_peak = torch.cuda.max_memory_allocated()
+    log(f"{curve.name} 2^{run['log2']} table build on the card: "
+        f"{build_s:.2f} s, {sum(t.numel() for t in tables) * 4 / 1e9:.2f} GB "
+        f"of tables, peak {build_peak / 2**30:.2f} GiB, launches {build}")
+    log_timer("in the table build", build_calls)
+    require_launched("MNT4753 table build", build, BUILD_KERNELS)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t1 = time.time()
+    with KernelTimer(MSM_TARGETS) as tm, KernelTimer(TABLE_TARGETS) as tt:
+        proof = GP.prove(curve, params, inputs, device=DEV, tables=tables)
+    wall = time.time() - t1
+    launches = counts()
+    in_proof = {**tm.totals(), **tt.totals()}
+    peak = torch.cuda.max_memory_allocated()
+    laps = profiling.last_laps()
+    log(f"{curve.name} 2^{run['log2']} prove with device tables: "
+        f"{wall:.2f} s, peak device memory {peak / 2**30:.2f} GiB")
+    for name in ("stage params (host->device)", "stage inputs (host->device)",
+                 "H pipeline (device NTT)", "scalar from_monty (device)",
+                 MSM_STRAUS, "readback + host assembly"):
+        log(f"  phase {name}: {laps[name]:.3f} s")
+    log(f"  launches: {launches}")
+    log_timer("in the table proof", in_proof)
+    require_launched("MNT4753 table proof", launches, PATH_KERNELS)
+    require_proof("MNT4753 2^20 table proof", proof, run["want"])
+    log(f"{curve.name} 2^{run['log2']} table proof: A, B, C match the known "
+        f"logs")
+    straus_check(rng, curve, tables, params.m + 1, results)
+    del tables
+    torch.cuda.empty_cache()
+    return dict(build_s=build_s, build=build, build_calls=build_calls,
+                build_peak=build_peak, wall_s=wall, launches=launches,
+                in_proof=in_proof, peak_bytes=peak, phases=laps)
+
+
+def serve_phase(rng, run, workdir: str) -> dict:
+    """Phase 8: `gpu MNT4753 serve` with two inputs at 2^20."""
+    curve = MNT4753
+    fresh = os.path.join(workdir, f"{curve.name}-input-2")
+    values = write_input(curve, run["log2"], fresh, rng)
+    want2, _ = expected_proof(curve, run["log2"], run["ks"], run["logs"],
+                              values)
+    outs = [os.path.join(workdir, f"serve-output-{i}") for i in (0, 1)]
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["gpu", curve.name, "serve", run["params"],
+                       run["input"], outs[0], fresh, outs[1],
+                       "--device", DEV])
+    wall = time.time() - t0
+    launches = counts()
+    text = buf.getvalue()
+    log(text.rstrip())
+    laps = {k: float(v) for k, v in
+            re.findall(r"^(.+): ([0-9.]+)s$", text, re.M)}
+    log(f"{curve.name} serve, 2 inputs: {wall:.2f} s, launches {launches}")
+    if rc != 0 or text.count("stage params:") != 1:
+        raise AssertionError("serve must stage the parameters once")
+    require_launched("MNT4753 serve", launches, PATH_KERNELS)
+    if sha256(outs[0]) != run["sha"]:
+        raise AssertionError("served proof 0 differs from the one-shot "
+                             "proof of the same pair")
+    require_proof("served proof 0", read_proof(outs[0], curve), run["want"])
+    require_proof("served proof 1", read_proof(outs[1], curve), want2)
+    log(f"{curve.name} serve: both proofs match their known logs; proof 0 "
+        f"equals the one-shot proof")
+    return dict(wall_s=wall, laps=laps, launches=launches)
 
 
 def card_line() -> str:
@@ -556,7 +943,9 @@ def kernel_entry(name, cfg, results, launches, in_proof) -> dict:
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": None,
              "shape": r["shape"], "config": r["config"]}
-    for key in ("path_shape", "path_ms", "path_bound_ms"):
+    for key in ("path_shape", "path_ms", "path_plain_ms", "path_bound_ms",
+                "path_max_abs_err", "straus_shape", "straus_ms",
+                "straus_plain_ms", "straus_max_abs_err"):
         if key in r:
             entry[key] = r[key]
     if (name, cfg) in in_proof:
@@ -569,6 +958,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     rng = np.random.default_rng(SEED)
+    # the table path is driven by phases 6 and 7 alone
+    os.environ.pop("GROTH16_PREPROCESSED_PATH", None)
     card = card_line()
     log(f"card: {card}")
 
@@ -590,15 +981,28 @@ def main() -> int:
                           (MNT6753, "g2"): 96 * 257}, results)
     log(f"kernel checks done at {time.time() - t0:.1f} s")
 
+    cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as workdir:
-        fixture_gate(workdir)
-        log(f"fixture gate done at {time.time() - t0:.1f} s")
-        streamed_msm(rng)
-        log(f"streamed MSM done at {time.time() - t0:.1f} s")
-        run4 = full_proof(MNT4753, 20, workdir, rng)
-        run6 = full_proof(MNT6753, 15, workdir, rng)
+        # no table file in the working directory: phases 3 to 5 take the
+        # Pippenger path
+        os.chdir(workdir)
+        try:
+            fixture_gate(workdir)
+            log(f"fixture gate done at {time.time() - t0:.1f} s")
+            streamed_msm(rng)
+            log(f"streamed MSM done at {time.time() - t0:.1f} s")
+            run4 = full_proof(MNT4753, 20, workdir, rng)
+            run6 = full_proof(MNT6753, 15, workdir, rng)
+            log(f"full-size proofs done at {time.time() - t0:.1f} s")
+            pre6 = table_files_phase(rng, run6, workdir, results)
+            log(f"table path through files done at {time.time() - t0:.1f} s")
+            tab4 = table_memory_phase(rng, run4, results)
+            log(f"table path in memory done at {time.time() - t0:.1f} s")
+            serve4 = serve_phase(rng, run4, workdir)
+            log(f"serve done at {time.time() - t0:.1f} s")
+        finally:
+            os.chdir(cwd)
 
-    log(f"full-size proofs done at {time.time() - t0:.1f} s")
     # The first four entries: the kernels of the path on the MNT4753 2^20
     # proof (G1 shapes; mont_mul over its Fr), launches from that proof.
     kernels = []
@@ -606,7 +1010,10 @@ def main() -> int:
         entry = kernel_entry(name, 0, results, run4["launches"][name],
                              run4["in_proof"])
         entry["launches_mnt6753_2p15"] = run6["launches"][name]
+        entry["launches_table_proof_2p20"] = tab4["launches"][name]
+        entry["launches_serve_2_proofs_2p20"] = serve4["launches"][name]
         kernels.append(entry)
+    kernels[0]["launches_table_build_2p20"] = tab4["build"]["mont_mul"]
     # The other group configurations of the group add and the scan, each
     # with its own launches in the proof that runs it.
     for cfg, run in ((1, run4), (2, run6), (3, run6)):
@@ -617,6 +1024,31 @@ def main() -> int:
                                      f"its proof")
             kernels.append(kernel_entry(name, cfg, results, calls,
                                         run["in_proof"]))
+    # ec_add launches per configuration in the table proofs: the A|H
+    # Pippenger pass plus the Straus trees
+    for entry, cfg in zip(kernels[4:], (1, 1, 2, 2, 3, 3)):
+        if entry["name"] != "ec_add":
+            continue
+        tab, key = ((tab4, "launches_table_proof_2p20") if cfg < 2 else
+                    (pre6, "launches_table_proof_mnt6753_2p15"))
+        entry[key] = sum(tab["in_proof"].get((name, cfg), (0, 0.0))[0]
+                         for name in ("ec_add", "straus ec_add"))
+    kernels[1]["launches_table_proof_2p20_straus"] = \
+        tab4["in_proof"][("straus ec_add", 0)][0]
+    # ec_mixed_add: the table build, launches per build of B1, B2 and L
+    for cfg, tab, size in ((0, tab4, "MNT4753 2^20"),
+                           (1, tab4, "MNT4753 2^20"),
+                           (2, pre6, "MNT6753 2^15"),
+                           (3, pre6, "MNT6753 2^15")):
+        calls = tab["build_calls"].get(("ec_mixed_add", cfg), (0, 0.0))[0]
+        if calls != (62 if cfg % 2 == 0 else 31):
+            raise AssertionError(f"ec_mixed_add cfg {cfg}: {calls} launches "
+                                 f"in the {size} table build")
+        entry = kernel_entry("ec_mixed_add", cfg, results, calls, {})
+        entry["table_build"] = size
+        entry["build_ms_total"] = \
+            tab["build_calls"][("ec_mixed_add", cfg)][1]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if torch.cuda.device_count() != 1:

@@ -12,6 +12,12 @@ the reference's run_prover, cuda_prover_piecewise.cu:96-230).  One proof:
      (ops/msm.msm_window_sums_streamed)
   -> exact host Horner epilogue, C = Ht + Lt + r * Bt1, write_output.
 
+With preprocessed tables (`<CURVE>_preprocessed`, written by
+models/preprocess_device.py) B1, B2 and L run the table MSM
+(ops/straus.py) instead, while A and H share one 2-way Pippenger pass, as
+the JAX package's table path does (tpu_prover.prove with tables).
+`serve_files` stages one parameter set and proves many inputs against it.
+
 Proof formula (challenge-simplified Groth16, no s-randomness,
 libsnark/main.cpp:219): A = w*A_query, B = w*B2_query,
 C = H(x)*H_query + w_aux*L_query + r * (w*B1_query).
@@ -21,6 +27,7 @@ Every entry point takes a `device` ("cuda" unless the caller asks for
 versions run.  Proof bytes are the same either way.
 """
 
+import os
 import time
 from dataclasses import dataclass
 
@@ -35,6 +42,7 @@ from ..ops.mont_mul import mont_mul
 from ..ops.msm import (DEFAULT_CHUNK, finalize_msm, msm_window_sums_streamed,
                        window_sums_to_host)
 from ..ops.ntt import NttPlan, compute_h, const_words
+from ..ops.straus import STRAUS_C, straus_window_sums
 from ..utils import serialization as ser
 from ..utils.profiling import enter_block, leave_block, log_device_memory
 
@@ -102,6 +110,22 @@ def load_input(path: str, curve: CurveParams, d: int, m: int) -> DeviceInput:
     return DeviceInput(w, ca, cb, cc, r)
 
 
+def load_preprocessed(path: str, curve: CurveParams, m: int, nL: int):
+    """Bulk load of `<CURVE>_preprocessed` (layout: the JAX package's
+    tpu_prover.load_preprocessed, the reference's output_g1_multiples,
+    libsnark/main.cpp:248-339): for B1 (m+1 G1 points), B2 (m+1 G2) and
+    L (nL G1), 2^5 - 1 rows of affine points, row-major by multiple, so
+    row k*n + i holds (k+1) * P_i.  Returns (B1_t, B2_t, L_t) word rows."""
+    nmul = (1 << STRAUS_C) - 1
+    deg = curve.ext_degree
+    with open(path, "rb") as f:
+        B1_t = _read_rows(f, nmul * (m + 1), 2)
+        B2_t = _read_rows(f, nmul * (m + 1), 2 * deg)
+        L_t = _read_rows(f, nmul * nL, 2)
+        ser.check_trailing(f, path)
+    return B1_t, B2_t, L_t
+
+
 def params_from_jax(jp) -> DeviceParams:
     """The JAX package's DeviceParams (u16 limb rows (n, 2*deg*48)) ->
     the port's word rows: the same parameters, carried across."""
@@ -113,6 +137,11 @@ def input_from_jax(ji) -> DeviceInput:
     """The JAX package's DeviceInput ((n, 48) 16-bit limbs) -> words."""
     return DeviceInput(*(L.jax_rows_to_words(a) for a in
                          (ji.w_mont, ji.ca, ji.cb, ji.cc)), ji.r)
+
+
+def tables_from_jax(jax_tables):
+    """The JAX package's (B1_t, B2_t, L_t) u16 limb rows -> word rows."""
+    return tuple(L.jax_rows_to_words(t) for t in jax_tables)
 
 
 # -- the prover ----------------------------------------------------------------------
@@ -165,10 +194,14 @@ class ProverSession:
 
         sess = ProverSession(curve, params, device="cuda")
         proof = sess.prove(inputs)
-    """
+
+    With `tables` (B1_t, B2_t, L_t), word rows as host arrays or tensors
+    already on the device (load_preprocessed, or the tables of
+    preprocess_device.multiples_rows), B1, B2 and L run the table MSM and
+    only A and H are staged for Pippenger."""
 
     def __init__(self, curve: CurveParams, params: DeviceParams,
-                 device="cuda"):
+                 device="cuda", tables=None):
         self.device = torch.device(device)
         self.curve = curve
         self.g1 = get_curve_ops(curve, "g1")
@@ -182,21 +215,32 @@ class ProverSession:
         self.nL = params.L.shape[0]
         q = self.chunk_s
 
+        dev = self.device
         enter_block("stage params (host->device)")
-        g1_rows = np.concatenate([params.A[:m + 1], params.B1[:m + 1],
-                                  params.L[:self.nL], params.H[:d]])
+        if tables is None:
+            parts = [params.A[:m + 1], params.B1[:m + 1],
+                     params.L[:self.nL], params.H[:d]]
+            self.tables = None
+        else:
+            # the table MSMs take B1, B2 and L; A and H stay on Pippenger
+            parts = [params.A[:m + 1], params.H[:d]]
+            self.tables = tuple(
+                torch.as_tensor(t).to(dev).reshape(-1, t.shape[-1])
+                for t in tables)
+        g1_rows = np.concatenate(parts)
         self.n_tot = g1_rows.shape[0]
         self.n_pad = _round_up(self.n_tot, q)
-        self.n2 = m + 1
-        self.n2_pad = _round_up(self.n2, q)
-        dev = self.device
         self.g1_rows = torch.from_numpy(_pad_rows(g1_rows, self.n_pad)).to(dev)
-        self.b2_rows = torch.from_numpy(
-            _pad_rows(params.B2[:self.n2], self.n2_pad)).to(dev)
-        self.seg = torch.from_numpy(np.concatenate([
-            np.full(m + 1, 0), np.full(m + 1, 1), np.full(self.nL, 2),
-            np.full(self.n_pad - 2 * (m + 1) - self.nL, 3)])
-            .astype(np.int64)).to(dev)
+        # MSM index per G1 row (the padding joins the last MSM)
+        sizes = [len(a) for a in parts]
+        sizes[-1] += self.n_pad - self.n_tot
+        self.seg = torch.from_numpy(np.repeat(
+            np.arange(len(parts)), sizes).astype(np.int64)).to(dev)
+        if tables is None:
+            self.n2 = m + 1
+            self.n2_pad = _round_up(self.n2, q)
+            self.b2_rows = torch.from_numpy(
+                _pad_rows(params.B2[:self.n2], self.n2_pad)).to(dev)
         self.block_points = (STREAM_BLOCK if self.n_pad > STREAM_ABOVE
                              else None)
         self.plan = None
@@ -230,6 +274,9 @@ class ProverSession:
         _sync(dev)
         leave_block("scalar from_monty (device)")
 
+        if self.tables is not None:
+            return self._msms_with_tables(inputs.r, w_keys, h_std)
+
         enter_block("MSMs (device Pippenger)")
         # ONE fused G1 pass for A / B1 / L / H: the MSM index rides the
         # sort key, so the four MSMs share one sort / scan / reduction
@@ -259,11 +306,47 @@ class ProverSession:
         leave_block("readback + host assembly")
         return out
 
+    def _msms_with_tables(self, r: int, w_keys, h_std):
+        """The MSMs of the table path (tpu_prover.prove with tables,
+        cuda_prover_piecewise.cu:162-187) and the host assembly."""
+        d, m, nL, c = self.d, self.m, self.nL, self.c
+        hg1, hg2 = self.hg1, self.hg2
+        enter_block("MSMs (device: Straus tables + Pippenger A/H)")
+        g1_keys = torch.cat([
+            w_keys[:, :m + 1], h_std[:, :d], w_keys.new_zeros(
+                (L.NWORDS, self.n_pad - self.n_tot))], 1)
+        ws_g1 = msm_window_sums_streamed(
+            self.g1, g1_keys, self.g1_rows, self.chunk_s, c, self.seg, 2,
+            self.block_points, self.signed)
+        del g1_keys, h_std
+        B1_t, B2_t, L_t = self.tables
+        w_all = w_keys[:, :m + 1].contiguous()
+        ws_B1 = straus_window_sums(self.g1, w_all, B1_t)
+        ws_L = straus_window_sums(
+            self.g1, w_keys[:, PI1:PI1 + nL].contiguous(), L_t)
+        ws_B2 = straus_window_sums(self.g2, w_all, B2_t)
+        _sync(self.device)
+        leave_block("MSMs (device: Straus tables + Pippenger A/H)")
+
+        enter_block("readback + host assembly")
+        At, Ht = (finalize_msm(hg1, pts, c) for pts in
+                  window_sums_to_host(self.g1, ws_g1, num_msms=2))
+        Bt1, Lt = (finalize_msm(hg1, window_sums_to_host(self.g1, ws)[0],
+                                STRAUS_C) for ws in (ws_B1, ws_L))
+        Bt2 = finalize_msm(hg2, window_sums_to_host(self.g2, ws_B2)[0],
+                           STRAUS_C)
+        C = hg1.add(hg1.add(Ht, Lt), hg1.mul(r, Bt1))
+        out = (hg1.to_affine(At), hg2.to_affine(Bt2), hg1.to_affine(C))
+        leave_block("readback + host assembly")
+        return out
+
 
 def prove(curve: CurveParams, params: DeviceParams, inputs: DeviceInput,
-          device="cuda"):
-    """Full proof as a one-shot session; returns affine (A, B2, C)."""
-    sess = ProverSession(curve, params, device)
+          device="cuda", tables=None):
+    """Full proof as a one-shot session; returns affine (A, B2, C).
+    `tables`: optional (B1_t, B2_t, L_t) for the table path (see
+    ProverSession); proof bytes are the same either way."""
+    sess = ProverSession(curve, params, device, tables)
     return sess.prove(inputs)
 
 
@@ -275,11 +358,22 @@ def prove_files(curve: CurveParams, params_path: str, input_path: str,
     t0 = time.time()
     params = load_params(params_path, curve)
     print(f"load params: {time.time() - t0:.3f}s", flush=True)
+    # the reference always loads `<CURVE>_preprocessed` from the working
+    # directory (cuda_prover_piecewise.cu:244-247); here the tables are
+    # optional and taken when the file is there
+    tables = None
+    pre_path = os.environ.get("GROTH16_PREPROCESSED_PATH",
+                              f"{curve.name}_preprocessed")
+    if os.path.isfile(pre_path):
+        t1 = time.time()
+        tables = load_preprocessed(pre_path, curve, params.m,
+                                   params.L.shape[0])
+        print(f"load preprocessing: {time.time() - t1:.3f}s", flush=True)
     t1 = time.time()
     inputs = load_input(input_path, curve, params.d, params.m)
     print(f"load inputs: {time.time() - t1:.3f}s", flush=True)
     t2 = time.time()
-    proof = prove(curve, params, inputs, device=device)
+    proof = prove(curve, params, inputs, device=device, tables=tables)
     print(f"prove (gpu e2e): {time.time() - t2:.3f}s", flush=True)
     log_device_memory("post-prove")
     t3 = time.time()
@@ -293,3 +387,28 @@ def run_prover(curve_name: str, params_path: str, input_path: str,
     """CLI adapter (utils/cli.py `gpu <CURVE> compute ...`)."""
     prove_files(CURVES[curve_name], params_path, input_path, output_path,
                 device=device)
+
+
+def serve_files(curve_name: str, params_path: str, pairs,
+                device="cuda") -> None:
+    """`gpu <CURVE> serve <params> <in> <out> ...`: load and stage the
+    parameter set once, then prove every (input, output) pair against it
+    (the JAX package's tpu_prover.serve_files).  Pippenger path: the
+    table file is not read."""
+    curve = CURVES[curve_name]
+    t0 = time.time()
+    params = load_params(params_path, curve)
+    print(f"load params: {time.time() - t0:.3f}s", flush=True)
+    t1 = time.time()
+    sess = ProverSession(curve, params, device)
+    print(f"stage params: {time.time() - t1:.3f}s", flush=True)
+    for i, (input_path, output_path) in enumerate(pairs):
+        t1 = time.time()
+        inputs = load_input(input_path, curve, params.d, params.m)
+        print(f"[{i}] load inputs: {time.time() - t1:.3f}s", flush=True)
+        t1 = time.time()
+        proof = sess.prove(inputs)
+        print(f"[{i}] prove (serve): {time.time() - t1:.3f}s", flush=True)
+        ser.write_output(output_path, curve, *proof)
+    log_device_memory("post-serve")
+    print(f"total: {time.time() - t0:.3f}s", flush=True)

@@ -21,7 +21,8 @@ from gpu_groth16_prover_3x_tpu_torch.ops import group_kernels as GK
 from gpu_groth16_prover_3x_tpu_torch.ops import limbs as L
 from gpu_groth16_prover_3x_tpu_torch.ops import msm as M
 from gpu_groth16_prover_3x_tpu_torch.ops.ec import get_curve_ops
-from gpu_groth16_prover_3x_tpu_torch.ops.mont_mul import (mont_mul,
+from gpu_groth16_prover_3x_tpu_torch.ops.mont_mul import (MONT_MUL,
+                                                          mont_mul,
                                                           mont_mul_plain)
 
 pytestmark = pytest.mark.gpu
@@ -203,8 +204,9 @@ def test_streamed_msm_on_card_vs_cpu(signed):
 
 
 @pytest.mark.parametrize("curve_name", ["MNT4753", "MNT6753"])
-def test_fixture_proof_on_card(curve_name, tmp_path):
+def test_fixture_proof_on_card(curve_name, tmp_path, monkeypatch):
     card()
+    monkeypatch.chdir(tmp_path)           # no table file: the Pippenger path
     from gpu_groth16_prover_3x_tpu_torch.models import gpu_prover as GP
     fix = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                        "torch_port")
@@ -220,3 +222,95 @@ def test_fixture_proof_on_card(curve_name, tmp_path):
     assert hashlib.sha256(out.read_bytes()).hexdigest() == \
         want[f"{curve_name}-output"]
     assert all(k.launches > b for k, b in zip(counters, before))
+
+
+# -- the table path: inversion, table MSM, table build ------------------------
+
+def random_projective(rng, cops, n: int) -> torch.Tensor:
+    """(3*deg, 24, n) random canonical coordinates (any Z, so the affine
+    normalisation is a plain field computation), every 5th lane the
+    identity (Z = 0)."""
+    P = torch.stack([canon(rng, cops.p, n) for _ in range(3 * cops.deg)])
+    P[:, :, ::5] = M.identity_words(cops, 1, "cpu")
+    return P
+
+
+@pytest.mark.parametrize("curve,group", GROUPS, ids=IDS)
+def test_affine_normalisation_kernels_vs_plain(curve, group):
+    from gpu_groth16_prover_3x_tpu_torch.ops import inverse as INV
+    dev = card()
+    cops = get_curve_ops(curve, group)
+    P = random_projective(np.random.default_rng(5), cops, 301).to(dev)
+    before = MONT_MUL.launches
+    got = INV.to_affine_rows(cops, P)
+    assert MONT_MUL.launches > before + 1000     # the Fermat chain ran
+    want = INV.to_affine_rows(cops, P, mul=mont_mul_plain)
+    assert torch.equal(got, want)
+    assert not got[::5].any()                     # identity -> zero row
+
+
+@pytest.mark.parametrize("curve,group", GROUPS, ids=IDS)
+def test_straus_window_sums_kernel_vs_plain(curve, group):
+    from gpu_groth16_prover_3x_tpu_torch.ops import straus as S
+    dev = card()
+    rng = np.random.default_rng(6)
+    cops = get_curve_ops(curve, group)
+    n, d = 37, cops.deg
+    table = torch.stack([canon(rng, cops.p, 31 * n)
+                         for _ in range(2 * d)]).reshape(2 * d * 24, -1)
+    table = table.t().contiguous()
+    table[rng.random(31 * n) < 0.1, d * 24:] = 0      # infinity rows
+    keys = canon(rng, curve.fr.p, n)
+    keys[:, 0] = 0
+    t, k = table.to(dev), keys.to(dev)
+    before = GK.EC_ADD.launches
+    got = S.straus_window_sums(cops, k, t)
+    assert GK.EC_ADD.launches == before + 6       # ceil(log2 37) levels
+    assert torch.equal(got, S.straus_window_sums_plain(cops, k, t))
+
+
+@pytest.mark.parametrize("curve,group", GROUPS, ids=IDS)
+def test_multiples_rows_on_card_vs_cpu(curve, group):
+    from gpu_groth16_prover_3x_tpu_torch.host import ec as HE
+    from gpu_groth16_prover_3x_tpu_torch.models.preprocess_device import \
+        multiples_rows
+    dev = card()
+    rng = np.random.default_rng(7)
+    hg = HE.g1_group(curve) if group == "g1" else HE.g2_group(curve)
+    gen = HE.g1_generator(curve) if group == "g1" else HE.g2_generator(curve)
+    p = curve.fq.p
+    rows = []
+    for i, k in enumerate(rng.integers(1, 1 << 40, size=9)):
+        if i == 3:
+            rows.append(np.zeros(2 * hg.deg * 24, np.int32))   # infinity
+            continue
+        x, y = hg.to_affine(hg.mul(int(k), gen))
+        cs = [x, y] if hg.deg == 1 else list(x) + list(y)
+        rows.append(np.concatenate([L.int_to_words(v * (1 << 768) % p)
+                                    for v in cs]))
+    rows = np.stack(rows)
+    before = GK.EC_MIXED_ADD.launches
+    got = multiples_rows(curve, group, rows, device=dev)
+    assert GK.EC_MIXED_ADD.launches == before + 31
+    want = multiples_rows(curve, group, rows, device="cpu")
+    assert torch.equal(got.cpu(), want)
+
+
+def test_table_path_fixture_proof_on_card(tmp_path, monkeypatch):
+    """`gpu MNT4753 preprocess` and `compute` on the card, with the table
+    file in the working directory: the committed hash."""
+    card()
+    from gpu_groth16_prover_3x_tpu_torch.utils import cli
+    monkeypatch.chdir(tmp_path)
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                       "torch_port")
+    with open(os.path.join(fix, "SHA256SUMS")) as f:
+        want = dict(reversed(line.split()) for line in f if line.strip())
+    params = os.path.join(fix, "MNT4753-parameters")
+    assert cli.main(["gpu", "MNT4753", "preprocess", params]) == 0
+    before = GK.EC_ADD.launches
+    assert cli.main(["gpu", "MNT4753", "compute", params,
+                     os.path.join(fix, "MNT4753-input"), "out"]) == 0
+    assert GK.EC_ADD.launches > before
+    assert hashlib.sha256((tmp_path / "out").read_bytes()).hexdigest() == \
+        want["MNT4753-output"]

@@ -98,11 +98,18 @@ def test_params_and_input_from_jax(curve_name):
 @pytest.mark.parametrize("argv", [
     ["gpu", "MNT4753", "compute", "p", "i", "o", "extra"],
     ["gpu", "MNT4753", "compute", "p", "i"],
-    ["gpu", "MNT4753", "serve", "p", "i", "o"],
+    ["gpu", "MNT4753", "serve", "p"],               # serve without pairs
     ["gpu", "BN254", "compute", "p", "i", "o"],
     ["tpu", "MNT4753", "compute", "p", "i", "o"],
+    ["gpu", "MNT4753", "preprocess", "p", "extra"],
+    ["gpu", "MNT4753", "preprocess"],
+    ["gpu", "MNT4753", "serve", "p", "i"],
+    ["gpu", "MNT4753", "serve", "p", "i", "o", "i2"],
+    ["gpu", "MNT4753", "bench", "p"],
 ], ids=["extra-positional", "missing-output", "no-serve-mode",
-        "unknown-curve", "unknown-command"])
+        "unknown-curve", "unknown-command", "preprocess-extra-path",
+        "preprocess-no-params", "serve-input-without-output",
+        "serve-odd-paths", "unknown-mode"])
 def test_cli_is_strict(argv):
     with pytest.raises(SystemExit) as e:
         cli.main(argv)
@@ -124,6 +131,9 @@ def test_port_imports_nothing_of_jax():
         "import gpu_groth16_prover_3x_tpu_torch.models.gpu_prover\n"
         "import gpu_groth16_prover_3x_tpu_torch.utils.cli\n"
         "import gpu_groth16_prover_3x_tpu_torch.ops.build\n"
+        "import gpu_groth16_prover_3x_tpu_torch.ops.straus\n"
+        "import gpu_groth16_prover_3x_tpu_torch.ops.inverse\n"
+        "import gpu_groth16_prover_3x_tpu_torch.models.preprocess_device\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib',"
         " 'gpu_groth16_prover_3x_tpu') or m.startswith("
         "('jax.', 'jaxlib.', 'gpu_groth16_prover_3x_tpu.'))]\n"
