@@ -44,7 +44,21 @@ Phases (any failure exits non-zero before the result line):
      to phase 6;
   8. `gpu MNT4753 serve` at 2^20 with the phase-4 input and a fresh random
      one: one staging of the parameters, both proofs equal to their
-     known logs.
+     known logs;
+  9. setup and the cpu oracle.  9a: the native host library loads, and
+     its Horner epilogue equals finalize_msm on the window sums of the
+     phase-4 proofs.  9b: `generate_parameters` at log2 6 for both curves
+     through the CLI (the host oracle below 2^10) equals the device setup
+     byte for byte, trapdoor files included, and `cpu compute` and `gpu
+     compute` on those files write the same proof; batch_exp_device on
+     the scan path (GROTH16_EXP_WINDOWED=0, 33 G1 and 33 Fq2 scalars)
+     equals host multiples.  9c: real keys at working size, MNT4753 2^16
+     and MNT6753 2^15, generated once each on the card, proved with `gpu
+     compute` and checked by verify_with_trapdoor.  9d: batch_exp_device
+     at MNT4753's 2^20 query size, G1 and Fq2, 256 sampled lanes against
+     host multiples.  ec_add and ec_mixed_add (and ec_dbl on the scan
+     path) are held against their plain versions at the setup's widths
+     on the operands the setup gave them.
 Every phase sets the launch counts to 0 before the run it reads and fails
 if a kernel of that run's path never launched.
 The last lines are the kernel JSON, the card line and the result line.
@@ -76,9 +90,13 @@ from gpu_groth16_prover_3x_tpu_torch.curves.constants import (  # noqa: E402
     MNT4753, MNT6753, R)
 from gpu_groth16_prover_3x_tpu_torch.host import ec as HE  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.host import field as HF  # noqa: E402
+from gpu_groth16_prover_3x_tpu_torch.host import groth16 as HG  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.models import gpu_prover as GP  # noqa
 from gpu_groth16_prover_3x_tpu_torch.models import \
     preprocess_device as PD  # noqa: E402
+from gpu_groth16_prover_3x_tpu_torch.models import setup as SU  # noqa: E402
+from gpu_groth16_prover_3x_tpu_torch.models import \
+    setup_device as SD  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.ops import build  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.ops import group_kernels as GK  # noqa
 from gpu_groth16_prover_3x_tpu_torch.ops import limbs as L  # noqa: E402
@@ -90,9 +108,13 @@ from gpu_groth16_prover_3x_tpu_torch.ops.inverse import \
 from gpu_groth16_prover_3x_tpu_torch.ops.ec import get_curve_ops  # noqa
 from gpu_groth16_prover_3x_tpu_torch.ops.ntt import NttPlan, compute_h  # noqa
 from gpu_groth16_prover_3x_tpu_torch.utils import cli  # noqa: E402
+from gpu_groth16_prover_3x_tpu_torch.utils import native  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.utils import profiling  # noqa: E402
+from gpu_groth16_prover_3x_tpu_torch.utils import \
+    serialization as SER  # noqa: E402
 
 SEED = 20261016
+SETUP_SEED = 7
 DEV = "cuda"               # a CPU rehearsal of the script sets "cpu"
 FIXTURES = os.path.join(ROOT, "tests", "data", "torch_port")
 
@@ -127,6 +149,8 @@ COUNTERS = {"mont_mul": MM.MONT_MUL, "ec_add": GK.EC_ADD,
             "msm_scan": M.MSM_SCAN}
 PATH_KERNELS = ("mont_mul", "ec_add", "ec_dbl", "msm_scan")
 BUILD_KERNELS = ("mont_mul", "ec_mixed_add")
+SETUP_KERNELS = ("mont_mul", "ec_add", "ec_mixed_add")
+SCAN_KERNELS = ("mont_mul", "ec_dbl", "ec_mixed_add")
 MSM_STRAUS = "MSMs (device: Straus tables + Pippenger A/H)"
 
 
@@ -500,6 +524,35 @@ class KernelTimer:
         return out
 
 
+class Capture:
+    """Keeps the arguments of calls of a module attribute (a wrapper the
+    callers look up at each call, as KernelTimer's targets): of the calls
+    for which keep(args) is true (all when keep is None), the index-th
+    per group configuration (args[0].cfg), or every one when index is
+    None.  The arguments are kept as given (tensors, not copies)."""
+
+    def __init__(self, mod, attr: str, keep=None, index=None):
+        self.mod, self.attr, self.keep, self.index = mod, attr, keep, index
+        self.calls = []
+        self.seen = {}
+
+    def __enter__(self):
+        self.saved = getattr(self.mod, self.attr)
+
+        def call(*args):
+            if self.keep is None or self.keep(args):
+                k = self.seen.get(args[0].cfg, 0)
+                self.seen[args[0].cfg] = k + 1
+                if self.index is None or k == self.index:
+                    self.calls.append(args)
+            return self.saved(*args)
+        setattr(self.mod, self.attr, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.attr, self.saved)
+
+
 MSM_TARGETS = {name: (M, name) for name in ("ec_add", "ec_dbl", "msm_scan")}
 TABLE_TARGETS = {"straus ec_add": (GK, "ec_add"),
                  "ec_mixed_add": (GK, "ec_mixed_add")}
@@ -608,7 +661,8 @@ def full_proof(curve, log2: int, workdir: str, rng):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t1 = time.time()
-    with KernelTimer(MSM_TARGETS) as timer:
+    with KernelTimer(MSM_TARGETS) as timer, \
+            Capture(GP, "finalize_windows") as fin:
         GP.prove_files(curve, params, inp, out, device=DEV)
     wall = time.time() - t1
     launches = counts()
@@ -634,7 +688,7 @@ def full_proof(curve, log2: int, workdir: str, rng):
     return dict(wall_s=wall, peak_bytes=peak, phases=laps,
                 launches=launches, in_proof=in_proof, params=params,
                 input=inp, output=out, sha=sha256(out), want=want, ks=ks,
-                logs=logs, log2=log2)
+                logs=logs, log2=log2, window_sums=fin.calls)
 
 
 # -- phases 6 to 8: the table path and serving --------------------------------
@@ -915,6 +969,307 @@ def serve_phase(rng, run, workdir: str) -> dict:
     return dict(wall_s=wall, laps=laps, launches=launches)
 
 
+# -- phase 9: setup and the cpu oracle ---------------------------------------
+
+def native_epilogue_check(runs) -> None:
+    """9a: the native Horner epilogue against finalize_msm on the window
+    sums of the phase-4 proofs (every finalize_windows call of each)."""
+    if not native.available():
+        raise AssertionError("the native host library did not build")
+    for run in runs:
+        for cops, hg, ws, cbits, *num in run["window_sums"]:
+            num = num[0] if num else 1
+            t0 = time.time()
+            got = M.finalize_windows_native(cops, hg, ws, cbits, num)
+            t1 = time.time()
+            want = [M.finalize_msm(hg, pts, cbits)
+                    for pts in M.window_sums_to_host(cops, ws, num)]
+            t2 = time.time()
+            if len(got) != num or not all(hg.equal(a, b)
+                                          for a, b in zip(got, want)):
+                raise AssertionError(f"native epilogue cfg {cops.cfg} "
+                                     f"differs from finalize_msm")
+            log(f"native epilogue cfg {cops.cfg}, {num} MSMs x "
+                f"{ws.shape[-1] // num} windows of {cbits} bits: "
+                f"{(t1 - t0) * 1e3:.1f} ms, finalize_msm "
+                f"{(t2 - t1) * 1e3:.1f} ms, equal")
+
+
+def host_multiples(curve, group, base, scalars, idx) -> np.ndarray:
+    hg = SD.host_group(curve, group)
+    deg = 1 if group == "g1" else curve.ext_degree
+    return SD.affine_rows(curve, deg, [hg.to_affine(hg.mul(scalars[i], base))
+                                       for i in idx])
+
+
+def edge_scalars(rng, curve, n: int) -> list:
+    """n scalars below r from words, the first three 0, 1 and r - 1."""
+    r = curve.fr.p
+    sc = L.words_to_ints(rand_canon(rng, r, (n,)))
+    sc[:3] = [0, 1, r - 1]
+    return sc
+
+
+def setup_kernel_check(name: str, captured, label: str,
+                       results: dict) -> None:
+    """One group kernel on operands the setup gave it: the kernel at the
+    full width against the plain version on the first lanes (lanewise),
+    timed against its bound."""
+    op = {"ec_add": "add", "ec_dbl": "dbl", "ec_mixed_add": "mixed_add"}[name]
+    ncoords = {"add": 9, "dbl": 6, "mixed_add": 8}[op]
+    cops, *ops = captured
+    n = ops[0].shape[-1]
+    kern = getattr(GK, name)
+    plain_fn = lanewise(getattr(GK, name + "_plain"))
+    sl = min(n, 1 << 12)
+    got = kern(cops, *ops)
+    want, plain = cuda_once(lambda: plain_fn(
+        cops, *(t[..., :sl].contiguous() for t in ops)))
+    err = require_equal(f"{name} cfg {cops.cfg} ({label})", got[..., :sl],
+                        want)
+    ms = cuda_ms(lambda: kern(cops, *ops), 3)
+    deg = cops.deg
+    bnd, by = bound_ms(n * FQ_MULS[op][deg] * MADS_PER_FQ_MUL,
+                       n * ncoords * deg * 96)
+    log(f"{name} cfg {cops.cfg} at {label}, n={n}: kernel {ms:.3f} ms, "
+        f"bound {bnd:.4f} ms ({by}); plain on {sl} lanes {plain:.1f} ms, "
+        f"equal")
+    results.setdefault((name, cops.cfg), {}).update(
+        setup_shape=f"{n} points ({label}; plain on {sl} lanes)",
+        setup_ms=ms, setup_plain_ms=plain, setup_bound_ms=bnd,
+        setup_bound_by=by, setup_max_abs_err=err)
+
+
+def files_equal(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def setup_oracle_phase(rng, workdir: str, results: dict, log2: int = 6,
+                       nscan: int = 33) -> dict:
+    """9b: the CLI's host-oracle files against the device setup, both
+    curves; `cpu compute` against `gpu compute` on them; the scan path."""
+    cdir, odir, ddir = (os.path.join(workdir, f"setup{log2}-{k}")
+                        for k in ("cli", "oracle", "device"))
+    for d in (cdir, odir, ddir):
+        os.mkdir(d)
+    t0 = time.time()
+    rc = cli.main(["generate_parameters", "--log2-d-4753", str(log2),
+                   "--log2-d-6753", str(log2), "--seed", str(SETUP_SEED),
+                   "--outdir", cdir, "--device", DEV])
+    log(f"generate_parameters (CLI, host oracle) at 2^{log2}: "
+        f"{time.time() - t0:.1f} s")
+    if rc != 0:
+        raise AssertionError("generate_parameters failed")
+    launches = {}
+    for curve in (MNT4753, MNT6753):
+        name = curve.name
+        paths = {}
+        for d, oracle in ((odir, True), (ddir, False)):
+            paths[d] = [os.path.join(d, f"{name}-{k}")
+                        for k in ("parameters", "input", "trapdoor")]
+            reset_counts()
+            t1 = time.time()
+            SU.generate_parameters(curve, log2, *paths[d][:2],
+                                   seed=SETUP_SEED,
+                                   trapdoor_path=paths[d][2],
+                                   device=DEV, oracle=oracle)
+            if not oracle:
+                torch.cuda.synchronize()
+                launches[name] = counts()
+            kind = "host oracle" if oracle else "device"
+            log(f"{name} 2^{log2} setup ({kind}): {time.time() - t1:.1f} s")
+        require_launched(f"{name} device setup", launches[name],
+                         SETUP_KERNELS)
+        for k, kind in enumerate(("parameters", "input")):
+            cli_file = os.path.join(cdir, f"{name}-{kind}")
+            if not (files_equal(cli_file, paths[odir][k])
+                    and files_equal(cli_file, paths[ddir][k])):
+                raise AssertionError(f"{name} {kind}: the device setup "
+                                     f"differs from the host oracle")
+        if not files_equal(paths[odir][2], paths[ddir][2]):
+            raise AssertionError(f"{name} trapdoor differs")
+        outs = {}
+        for mode in ("cpu", "gpu"):
+            outs[mode] = os.path.join(workdir, f"{name}-{log2}-{mode}")
+            argv = [mode, name, "compute", *paths[ddir][:2], outs[mode]]
+            t1 = time.time()
+            if cli.main(argv + (["--device", DEV] if mode == "gpu"
+                                else [])) != 0:
+                raise AssertionError(f"{mode} compute failed")
+            log(f"{name} 2^{log2} {mode} compute: {time.time() - t1:.1f} s")
+        if sha256(outs["cpu"]) != sha256(outs["gpu"]):
+            raise AssertionError(f"{name}: gpu compute differs from cpu "
+                                 f"compute on generated files")
+        log(f"{name} 2^{log2}: device setup = host oracle (parameters, "
+            f"input, trapdoor); cpu and gpu proofs sha256 "
+            f"{sha256(outs['gpu'])}; launches {launches[name]}")
+
+    # the scan path: double and add, the only ec_dbl of the setup
+    os.environ["GROTH16_EXP_WINDOWED"] = "0"
+    try:
+        for group in ("g1", "g2"):
+            curve = MNT4753
+            hg = SD.host_group(curve, group)
+            gen = HE.g1_generator(curve) if group == "g1" else \
+                HE.g2_generator(curve)
+            base = hg.mul(int(rng.integers(2, 1 << 62)), gen)
+            sc = edge_scalars(rng, curve, nscan)
+            reset_counts()
+            t1 = time.time()
+            with Capture(GK, "ec_dbl", index=L.R_BITS // 2) as cap:
+                rows = SD.batch_exp_device(curve, group, base, sc, DEV)
+            torch.cuda.synchronize()
+            dt = time.time() - t1
+            got = counts()
+            require_launched(f"scan path {group}", got, SCAN_KERNELS)
+            if not np.array_equal(rows, host_multiples(curve, group, base,
+                                                       sc, range(nscan))):
+                raise AssertionError(f"scan path {group} differs from host "
+                                     f"multiples")
+            log(f"batch_exp_device scan path MNT4753 {group}, n={nscan}: "
+                f"{dt:.2f} s, launches {got}, equal to host multiples")
+            launches[f"scan {group}"] = got
+            setup_kernel_check("ec_dbl", cap.calls[0],
+                               "setup scan path", results)
+    finally:
+        os.environ.pop("GROTH16_EXP_WINDOWED", None)
+    return launches
+
+
+def trapdoor_result(curve, td_path: str, input_path: str):
+    """The SetupResult verify_with_trapdoor needs, from the trapdoor JSON
+    and the input file."""
+    with open(td_path) as f:
+        td = json.load(f)
+    inputs = SER.read_input(input_path, curve, td["d"], td["m"])
+    if inputs.w != td["w"] or inputs.r != td["r"]:
+        raise AssertionError("the input file disagrees with the trapdoor")
+    return HG.SetupResult(
+        d=td["d"], m=td["m"], A=None, B1=None, B2=None, L=None, H=None,
+        w=inputs.w, ca=inputs.ca, cb=inputs.cb, cc=inputs.cc, r=inputs.r,
+        trapdoor=HG.Trapdoor(td["t"], td["alpha"], td["beta"], td["delta"],
+                             td["g1_dlog"], td["at"], td["bt"], td["ct"],
+                             td["zt"]))
+
+
+SETUP_LAPS = ("setup host part (R1CS, QAP, scalar vectors)",
+              "batch_exp A (device)", "batch_exp B1 (device)",
+              "batch_exp B2 (device)", "batch_exp L (device)",
+              "batch_exp H (device)", "write files")
+
+
+def setup_full_phase(workdir: str, results: dict,
+                     sizes=((MNT4753, 16), (MNT6753, 15))) -> dict:
+    """9c: real keys at working size, proved and verified."""
+    out = {}
+    for curve, log2 in sizes:
+        name = curve.name
+        d = os.path.join(workdir, f"keys-{name}")
+        os.mkdir(d)
+        params, inp, td, proof = (os.path.join(d, k) for k in (
+            "parameters", "input", "trapdoor.json", "output"))
+        # a cold setup: the window tables of 9b (same seed, so the same
+        # g1 base, and the fixed G2 generator) are built again
+        SD._TABLE_CACHE.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        ladder = lambda a: a[1].shape[-1] == SD.NWIN  # noqa: E731
+        t0 = time.time()
+        with KernelTimer({"to_affine_rows": (SD, "to_affine_rows")}) as ta, \
+                Capture(GK, "ec_mixed_add", ladder, 128) as mix, \
+                Capture(GK, "ec_add", lambda a: a[1].shape[-1] > SD.NWIN,
+                        SD.NWIN // 2) as add:
+            SU.generate_parameters(curve, log2, params, inp, seed=SETUP_SEED,
+                                   trapdoor_path=td, device=DEV)
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        laps = {k: v for k, v in profiling.last_laps().items()
+                if k in SETUP_LAPS}
+        affine = ta.totals()
+        log(f"{name} 2^{log2} generate_parameters on the card: {wall:.2f} s, "
+            f"peak device memory {peak / 2**30:.2f} GiB, launches "
+            f"{launches}")
+        for k in SETUP_LAPS:
+            log(f"  phase {k}: {laps[k]:.3f} s")
+        log_timer("affine rows", affine)
+        require_launched(f"{name} setup", launches, SETUP_KERNELS)
+        for cap, kname in ((mix, "ec_mixed_add"), (add, "ec_add")):
+            for args in cap.calls:
+                setup_kernel_check(kname, args, f"setup {name} 2^{log2}",
+                                   results)
+        del mix, add
+        t1 = time.time()
+        if cli.main(["gpu", name, "compute", params, inp, proof,
+                     "--device", DEV]) != 0:
+            raise AssertionError(f"{name} proof failed")
+        prove_s = time.time() - t1
+        t1 = time.time()
+        ok = HG.verify_with_trapdoor(curve, trapdoor_result(curve, td, inp),
+                                     *read_proof(proof, curve))
+        verify_s = time.time() - t1
+        if not ok:
+            raise AssertionError(f"{name} 2^{log2}: the proof from generated "
+                                 f"keys fails verify_with_trapdoor")
+        log(f"{name} 2^{log2}: gpu compute {prove_s:.2f} s; A, B, C pass "
+            f"verify_with_trapdoor ({verify_s:.1f} s)")
+        out[name] = dict(wall_s=wall, laps=laps, launches=launches,
+                         peak_bytes=peak, affine=affine, log2=log2)
+        os.remove(td)
+    return out
+
+
+def batch_exp_full_phase(rng, results: dict, n: int = 1 << 20,
+                         nsample: int = 256) -> dict:
+    """9d: batch_exp_device at MNT4753's 2^20 query size, G1 and Fq2."""
+    curve = MNT4753
+    sc = edge_scalars(rng, curve, n)
+    idx = sorted({0, 1, 2, *(int(i) for i in rng.choice(n, nsample - 3,
+                                                         replace=False))})
+    out = {}
+    for group in ("g1", "g2"):
+        hg = SD.host_group(curve, group)
+        gen = HE.g1_generator(curve) if group == "g1" else \
+            HE.g2_generator(curve)
+        base = hg.mul(int(rng.integers(2, 1 << 62)), gen)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.time()
+        with KernelTimer({"to_affine_rows": (SD, "to_affine_rows")}) as ta, \
+                Capture(GK, "ec_add", lambda a: a[1].shape[-1] == n,
+                        SD.NWIN // 2) as add:
+            rows = SD.batch_exp_device(curve, group, base, sc, DEV)
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        affine = ta.totals()
+        if launches["ec_mixed_add"] != 255 or launches["ec_add"] != SD.NWIN:
+            raise AssertionError(f"batch_exp {group}: launches {launches}")
+        if not np.array_equal(rows[idx], host_multiples(curve, group, base,
+                                                        sc, idx)):
+            raise AssertionError(f"batch_exp {group} at 2^20 differs from "
+                                 f"host multiples")
+        log(f"batch_exp_device MNT4753 {group} n={n}: {wall:.2f} s, peak "
+            f"device memory {peak / 2**30:.2f} GiB, launches {launches}; "
+            f"{len(idx)} sampled lanes equal host multiples")
+        log_timer("affine rows", affine)
+        setup_kernel_check("ec_add", add.calls[0],
+                           f"batch_exp 2^{n.bit_length() - 1} step",
+                           results)
+        del add, rows
+        out[group] = dict(wall_s=wall, launches=launches, peak_bytes=peak,
+                          affine=affine)
+    SD._TABLE_CACHE.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -945,7 +1300,9 @@ def kernel_entry(name, cfg, results, launches, in_proof) -> dict:
              "shape": r["shape"], "config": r["config"]}
     for key in ("path_shape", "path_ms", "path_plain_ms", "path_bound_ms",
                 "path_max_abs_err", "straus_shape", "straus_ms",
-                "straus_plain_ms", "straus_max_abs_err"):
+                "straus_plain_ms", "straus_max_abs_err", "setup_shape",
+                "setup_ms", "setup_plain_ms", "setup_bound_ms",
+                "setup_bound_by", "setup_max_abs_err"):
         if key in r:
             entry[key] = r[key]
     if (name, cfg) in in_proof:
@@ -1000,6 +1357,15 @@ def main() -> int:
             log(f"table path in memory done at {time.time() - t0:.1f} s")
             serve4 = serve_phase(rng, run4, workdir)
             log(f"serve done at {time.time() - t0:.1f} s")
+            native_epilogue_check((run4, run6))
+            del run4["window_sums"], run6["window_sums"]
+            small = setup_oracle_phase(rng, workdir, results)
+            log(f"setup against the host oracle done at "
+                f"{time.time() - t0:.1f} s")
+            keys = setup_full_phase(workdir, results)
+            log(f"setup at working size done at {time.time() - t0:.1f} s")
+            bexp = batch_exp_full_phase(rng, results)
+            log(f"batch_exp at 2^20 done at {time.time() - t0:.1f} s")
         finally:
             os.chdir(cwd)
 
@@ -1049,6 +1415,23 @@ def main() -> int:
         entry["build_ms_total"] = \
             tab["build_calls"][("ec_mixed_add", cfg)][1]
         kernels.append(entry)
+    # setup launches per kernel (all group configurations together)
+    for entry in kernels:
+        k = entry["name"]
+        entry["launches_setup_mnt4753_2p16"] = \
+            keys["MNT4753"]["launches"][k]
+        entry["launches_setup_mnt6753_2p15"] = \
+            keys["MNT6753"]["launches"][k]
+        entry["launches_batch_exp_2p20"] = sum(
+            bexp[g]["launches"][k] for g in ("g1", "g2"))
+        entry["launches_setup_scan_33"] = sum(
+            small[f"scan {g}"][k] for g in ("g1", "g2"))
+    missing = [k for k in ("mont_mul", "ec_add", "ec_dbl", "ec_mixed_add")
+               if not any(e["name"] == k and (e["launches_setup_mnt4753_2p16"]
+                                              + e["launches_setup_scan_33"])
+                          for e in kernels)]
+    if missing:
+        raise AssertionError(f"never launched in setup: {missing}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if torch.cuda.device_count() != 1:

@@ -10,7 +10,8 @@ the reference's run_prover, cuda_prover_piecewise.cu:96-230).  One proof:
   -> witness keys out of Montgomery form (`_from_monty_keys`)
   -> one fused 4-way G1 Pippenger MSM and one G2 MSM for B2
      (ops/msm.msm_window_sums_streamed)
-  -> exact host Horner epilogue, C = Ht + Lt + r * Bt1, write_output.
+  -> exact host Horner epilogue (native, ops/msm.finalize_windows),
+     C = Ht + Lt + r * Bt1, write_output.
 
 With preprocessed tables (`<CURVE>_preprocessed`, written by
 models/preprocess_device.py) B1, B2 and L run the table MSM
@@ -39,8 +40,8 @@ from ..host import ec as host_ec
 from ..ops import limbs as L
 from ..ops.ec import get_curve_ops
 from ..ops.mont_mul import mont_mul
-from ..ops.msm import (DEFAULT_CHUNK, finalize_msm, msm_window_sums_streamed,
-                       window_sums_to_host)
+from ..ops.msm import (DEFAULT_CHUNK, finalize_windows,
+                       msm_window_sums_streamed)
 from ..ops.ntt import NttPlan, compute_h, const_words
 from ..ops.straus import STRAUS_C, straus_window_sums
 from ..utils import serialization as ser
@@ -298,9 +299,8 @@ class ProverSession:
         leave_block("MSMs (device Pippenger)")
 
         enter_block("readback + host assembly")
-        At, Bt1, Lt, Ht = (finalize_msm(hg1, pts, c) for pts in
-                           window_sums_to_host(self.g1, ws_g1, num_msms=4))
-        Bt2 = finalize_msm(hg2, window_sums_to_host(self.g2, ws_b2)[0], c)
+        At, Bt1, Lt, Ht = finalize_windows(self.g1, hg1, ws_g1, c, 4)
+        Bt2, = finalize_windows(self.g2, hg2, ws_b2, c)
         C = hg1.add(hg1.add(Ht, Lt), hg1.mul(inputs.r, Bt1))
         out = (hg1.to_affine(At), hg2.to_affine(Bt2), hg1.to_affine(C))
         leave_block("readback + host assembly")
@@ -329,12 +329,10 @@ class ProverSession:
         leave_block("MSMs (device: Straus tables + Pippenger A/H)")
 
         enter_block("readback + host assembly")
-        At, Ht = (finalize_msm(hg1, pts, c) for pts in
-                  window_sums_to_host(self.g1, ws_g1, num_msms=2))
-        Bt1, Lt = (finalize_msm(hg1, window_sums_to_host(self.g1, ws)[0],
-                                STRAUS_C) for ws in (ws_B1, ws_L))
-        Bt2 = finalize_msm(hg2, window_sums_to_host(self.g2, ws_B2)[0],
-                           STRAUS_C)
+        At, Ht = finalize_windows(self.g1, hg1, ws_g1, c, 2)
+        Bt1, = finalize_windows(self.g1, hg1, ws_B1, STRAUS_C)
+        Lt, = finalize_windows(self.g1, hg1, ws_L, STRAUS_C)
+        Bt2, = finalize_windows(self.g2, hg2, ws_B2, STRAUS_C)
         C = hg1.add(hg1.add(Ht, Lt), hg1.mul(r, Bt1))
         out = (hg1.to_affine(At), hg2.to_affine(Bt2), hg1.to_affine(C))
         leave_block("readback + host assembly")

@@ -18,9 +18,11 @@ Per block of windows:
   6. the halving reduction sum_b b * bucket_b over all windows at once
      (group add / dbl kernels):  W <- W_A + W_B + S_B,  S <- dbl(S_A + S_B).
 
-The window sums are recombined on the host by exact Horner doubling
-(`finalize_msm`), as the reference finishes on the CPU
-(cuda_prover_piecewise.cu:188-200).
+The window sums are recombined on the host by exact Horner doubling, as
+the reference finishes on the CPU (cuda_prover_piecewise.cu:188-200):
+`finalize_windows_native` hands the words to the native host library
+(utils/native.horner_proj); `finalize_msm` is the plain Python version
+and the fallback when the library is absent.
 
 Scalars are (24, n) int32 standard-domain words; points are the file's
 affine rows (n, 2*deg*24) int32 (x coefficients, then y; y == 0 encodes
@@ -28,9 +30,11 @@ the point at infinity).  Window sums are (3*deg, 24, nwin*num_msms)
 int32 projective points, column w*num_msms + msm.
 """
 
+import numpy as np
 import torch
 
 from ..host import field as HF
+from ..utils import native
 from . import build
 from . import limbs as L
 from .ec import CurveOps, from_limb_point, to_limb_point
@@ -407,3 +411,37 @@ def finalize_msm(host_group, window_pts, cbits: int):
             acc = host_group.dbl(acc)
         acc = host_group.add(acc, proj_to_host(host_group, window_pts[w]))
     return acc
+
+
+def finalize_windows_native(cops: CurveOps, host_group, ws, cbits: int,
+                            num_msms: int = 1):
+    """finalize_msm of every MSM of a window-sum stack in the native host
+    library: a list of host Jacobian points, one per MSM, or None when
+    the library is absent (callers fall back to window_sums_to_host +
+    finalize_msm).  The counterpart of the JAX package's
+    ops/msm.finalize_windows_native.
+
+    The words go straight to native.horner_proj: a window's 3*deg
+    coordinates of 24 little-endian 32-bit words are its 3*deg*12
+    little-endian 64-bit limbs, canonical Montgomery at R = 2^768 with the
+    identity's Z = 0, which is the library's row layout."""
+    if not native.available():
+        return None
+    deg, p = cops.deg, cops.p
+    nwin = ws.shape[-1] // num_msms
+    a = ws.cpu().numpy().reshape(3 * deg, L.NWORDS, nwin, num_msms)
+    rows = np.ascontiguousarray(a.transpose(3, 2, 0, 1)).view(np.uint64)
+    rows = rows.reshape(num_msms, nwin, 3 * deg * L.NWORDS // 2)
+    return [native.horner_proj(p, deg, host_group.alpha, host_group.a,
+                               rows[i], cbits) for i in range(num_msms)]
+
+
+def finalize_windows(cops: CurveOps, host_group, ws, cbits: int,
+                     num_msms: int = 1):
+    """Per-MSM host points of a window-sum stack: the native epilogue,
+    else the plain one."""
+    out = finalize_windows_native(cops, host_group, ws, cbits, num_msms)
+    if out is None:
+        out = [finalize_msm(host_group, pts, cbits) for pts in
+               window_sums_to_host(cops, ws, num_msms)]
+    return out

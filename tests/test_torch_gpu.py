@@ -314,3 +314,51 @@ def test_table_path_fixture_proof_on_card(tmp_path, monkeypatch):
     assert GK.EC_ADD.launches > before
     assert hashlib.sha256((tmp_path / "out").read_bytes()).hexdigest() == \
         want["MNT4753-output"]
+
+
+# -- the trusted setup on the card --------------------------------------------
+
+@pytest.mark.parametrize("curve_name", ["MNT4753", "MNT6753"])
+def test_device_setup_on_card_matches_oracle(curve_name, tmp_path):
+    """log2 6 (every query windowed): parameter, input and trapdoor files
+    of the device setup on the card equal the host oracle's."""
+    card()
+    from gpu_groth16_prover_3x_tpu_torch.models import setup as SU
+    files = {}
+    for oracle in (True, False):
+        d = tmp_path / str(oracle)
+        d.mkdir()
+        before = GK.EC_ADD.launches
+        SU.generate_parameters(CURVES[curve_name], 6, str(d / "p"),
+                               str(d / "i"), seed=5,
+                               trapdoor_path=str(d / "t"), device="cuda",
+                               oracle=oracle)
+        if not oracle:
+            assert GK.EC_ADD.launches == before + 5 * 96
+        files[oracle] = [(d / n).read_bytes() for n in ("p", "i", "t")]
+    assert files[True] == files[False]
+
+
+@pytest.mark.parametrize("windowed", [True, False], ids=["windowed", "scan"])
+@pytest.mark.parametrize("curve,group", GROUPS, ids=IDS)
+def test_batch_exp_on_card_matches_host(curve, group, windowed,
+                                        monkeypatch):
+    card()
+    from gpu_groth16_prover_3x_tpu_torch.host import ec as HE
+    from gpu_groth16_prover_3x_tpu_torch.models import setup_device as SD
+    if not windowed:
+        monkeypatch.setenv("GROTH16_EXP_WINDOWED", "0")
+    hg = SD.host_group(curve, group)
+    gen = HE.g1_generator(curve) if group == "g1" else HE.g2_generator(curve)
+    base = hg.mul(0xC0FFEE, gen)
+    r = curve.fr.p
+    rng = np.random.default_rng(8)
+    sc = [0, 1, r - 1, r] + [int(x) << 700 | int(y) for x, y in
+                             rng.integers(1, 1 << 52, size=(29, 2))]
+    counter = GK.EC_ADD if windowed else GK.EC_DBL
+    before = counter.launches
+    rows = SD.batch_exp_device(curve, group, base, sc, "cuda")
+    assert counter.launches == before + (96 if windowed else 768)
+    want = SD.affine_rows(curve, hg.deg, [hg.to_affine(hg.mul(s % r, base))
+                                          for s in sc])
+    assert np.array_equal(rows, want)

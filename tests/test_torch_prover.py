@@ -106,10 +106,21 @@ def test_params_and_input_from_jax(curve_name):
     ["gpu", "MNT4753", "serve", "p", "i"],
     ["gpu", "MNT4753", "serve", "p", "i", "o", "i2"],
     ["gpu", "MNT4753", "bench", "p"],
+    ["cpu", "MNT4753", "compute", "p", "i", "o", "extra"],
+    ["cpu", "MNT4753", "compute", "p", "i"],
+    ["cpu", "MNT4753", "preprocess", "p", "extra"],
+    ["cpu", "MNT4753", "serve", "p", "i", "o"],
+    ["cpu", "MNT4753", "compute", "p", "i", "o", "--device", "cpu"],
+    ["generate_parameters", "slow"],
+    ["generate_parameters", "fast", "extra"],
+    ["generate_parameters", "--log2-d-4753", "four"],
 ], ids=["extra-positional", "missing-output", "no-serve-mode",
         "unknown-curve", "unknown-command", "preprocess-extra-path",
         "preprocess-no-params", "serve-input-without-output",
-        "serve-odd-paths", "unknown-mode"])
+        "serve-odd-paths", "unknown-mode", "cpu-extra-positional",
+        "cpu-missing-output", "cpu-preprocess-extra-path", "cpu-no-serve",
+        "cpu-takes-no-device", "generate-unknown-size-word",
+        "generate-extra-positional", "generate-size-not-a-number"])
 def test_cli_is_strict(argv):
     with pytest.raises(SystemExit) as e:
         cli.main(argv)
@@ -134,6 +145,16 @@ def test_port_imports_nothing_of_jax():
         "import gpu_groth16_prover_3x_tpu_torch.ops.straus\n"
         "import gpu_groth16_prover_3x_tpu_torch.ops.inverse\n"
         "import gpu_groth16_prover_3x_tpu_torch.models.preprocess_device\n"
+        "import gpu_groth16_prover_3x_tpu_torch.models.setup\n"
+        "import gpu_groth16_prover_3x_tpu_torch.models.setup_device\n"
+        "import gpu_groth16_prover_3x_tpu_torch.models.cpu_prover\n"
+        "import gpu_groth16_prover_3x_tpu_torch.host.fft\n"
+        "import gpu_groth16_prover_3x_tpu_torch.host.msm\n"
+        "import gpu_groth16_prover_3x_tpu_torch.host.r1cs\n"
+        "import gpu_groth16_prover_3x_tpu_torch.host.groth16\n"
+        "import gpu_groth16_prover_3x_tpu_torch.host.pairing\n"
+        "import gpu_groth16_prover_3x_tpu_torch.utils.native\n"
+        "import gpu_groth16_prover_3x_tpu_torch.utils.serialization\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib',"
         " 'gpu_groth16_prover_3x_tpu') or m.startswith("
         "('jax.', 'jaxlib.', 'gpu_groth16_prover_3x_tpu.'))]\n"
