@@ -58,7 +58,26 @@ Phases (any failure exits non-zero before the result line):
      at MNT4753's 2^20 query size, G1 and Fq2, 256 sampled lanes against
      host multiples.  ec_add and ec_mixed_add (and ec_dbl on the scan
      path) are held against their plain versions at the setup's widths
-     on the operands the setup gave them.
+     on the operands the setup gave them;
+ 10. the multi-device prover (parallel/), in ranks spawned by
+     multihost.launch_local after the kernels are built.  10a:
+     prove_sharded at world 1 on nccl on the phase-4 MNT4753 2^20 files:
+     the proof equals phase 4's and the known logs.  10b: world 2 on
+     gloo, both ranks on the one card (nccl refuses two ranks on one
+     card), MNT4753 2^20 and MNT6753 2^15: each rank's proof equals
+     phase 4's, and each rank's scan point-steps (utils/opcount) are half
+     of 10a's up to padding.  Each rank reports its laps, peak memory,
+     collectives (calls, seconds, bytes sent), launches and op tally;
+     then a second proof in each rank captures the operands of the first
+     bucket scan of each MSM, of the cross-rank combine's ec_add and of
+     the NTT's mont_mul calls (each shape of at least n/4 lanes), which
+     are held against their plain versions (the scan on 4,096 of its
+     chunks, the others at full width).
+     10c: the sharded MSM of 2^16 MNT4753 G1 points over the 2 ranks in
+     global blocks of 2^14 equals the one pass.  10d: sharded_ntt at
+     2^20 over the 2 ranks equals ops/ntt on one rank, forward and
+     inverse, word for word.  A rank that raises or outlives its
+     timeout fails the phase.
 Every phase sets the launch counts to 0 before the run it reads and fails
 if a kernel of that run's path never launched.
 The last lines are the kernel JSON, the card line and the result line.
@@ -106,9 +125,16 @@ from gpu_groth16_prover_3x_tpu_torch.ops import straus as S  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.ops.inverse import \
     to_affine_rows  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.ops.ec import get_curve_ops  # noqa
-from gpu_groth16_prover_3x_tpu_torch.ops.ntt import NttPlan, compute_h  # noqa
+from gpu_groth16_prover_3x_tpu_torch.ops.ntt import (  # noqa: E402
+    NttPlan, compute_h, intt, ntt)
+from gpu_groth16_prover_3x_tpu_torch.parallel import multihost  # noqa: E402
+from gpu_groth16_prover_3x_tpu_torch.parallel import \
+    sharded as SH  # noqa: E402
+from gpu_groth16_prover_3x_tpu_torch.parallel.prover import \
+    prove_sharded  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.utils import cli  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.utils import native  # noqa: E402
+from gpu_groth16_prover_3x_tpu_torch.utils import opcount  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.utils import profiling  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.utils import \
     serialization as SER  # noqa: E402
@@ -201,6 +227,9 @@ def require_equal(name: str, got, want) -> int:
 # (about 40 KB for G1, 110 KB for Fq2): at the table path's widths they
 # run this many lanes at a time.
 PLAIN_LANES = 1 << 15
+# chunks of a bucket scan at the main path's widths that its plain version
+# (a Python loop over the chunk's steps) runs for the comparison
+PLAIN_CHUNKS = 1 << 12
 
 
 def lanewise(fn):
@@ -528,8 +557,9 @@ class Capture:
     """Keeps the arguments of calls of a module attribute (a wrapper the
     callers look up at each call, as KernelTimer's targets): of the calls
     for which keep(args) is true (all when keep is None), the index-th
-    per group configuration (args[0].cfg), or every one when index is
-    None.  The arguments are kept as given (tensors, not copies)."""
+    per group configuration (args[0].cfg; mont_mul's context has none),
+    or every one when index is None.  The arguments are kept as given
+    (tensors, not copies)."""
 
     def __init__(self, mod, attr: str, keep=None, index=None):
         self.mod, self.attr, self.keep, self.index = mod, attr, keep, index
@@ -541,8 +571,9 @@ class Capture:
 
         def call(*args):
             if self.keep is None or self.keep(args):
-                k = self.seen.get(args[0].cfg, 0)
-                self.seen[args[0].cfg] = k + 1
+                cfg = getattr(args[0], "cfg", None)
+                k = self.seen.get(cfg, 0)
+                self.seen[cfg] = k + 1
                 if self.index is None or k == self.index:
                     self.calls.append(args)
             return self.saved(*args)
@@ -1270,6 +1301,344 @@ def batch_exp_full_phase(rng, results: dict, n: int = 1 << 20,
     return out
 
 
+# -- phase 10: the multi-device prover -----------------------------------------
+
+RANK_TIMEOUT = 600.0       # seconds for one launch of ranks
+STREAM10 = (1 << 16, 1 << 14, 16)   # 10c: points, global block, window bits
+NTT10_LOG2 = 20                     # 10d: log2 of the NTT size
+
+
+class CollectiveTimer:
+    """Host clock around each exchange of parallel/sharded.Comm, with the
+    card drained before and after, so a sum is the exchange alone (on
+    gloo its staging copies through host memory included): name ->
+    [calls, seconds]."""
+
+    NAMES = ("all_to_all", "all_gather")
+
+    def __enter__(self):
+        self.saved = {k: getattr(SH.Comm, k) for k in self.NAMES}
+        self.calls = {k: [0, 0.0] for k in self.NAMES}
+
+        def timed(name, fn):
+            def call(comm, x):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(comm, x)
+                torch.cuda.synchronize()
+                self.calls[name][0] += 1
+                self.calls[name][1] += time.perf_counter() - t
+                return out
+            return call
+        for name, fn in self.saved.items():
+            setattr(SH.Comm, name, timed(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(SH.Comm, name, fn)
+
+
+def first_of_shape(min_lanes: int):
+    """A Capture filter: the first mont_mul call of each operand shape
+    with at least min_lanes lanes."""
+    seen = set()
+
+    def keep(args):
+        shape = tuple(args[1].shape)
+        if args[1][0].numel() < min_lanes or shape in seen:
+            return False
+        seen.add(shape)
+        return True
+    return keep
+
+
+def sharded_path_checks(caps: dict, label: str) -> list:
+    """The kernels on the operands a rank's prove_sharded gave them,
+    against their plain versions on the card: the first bucket scan of
+    each MSM (plain on PLAIN_CHUNKS of its chunks, spread over its
+    windows), the cross-rank combine's ec_add and the NTT's mont_mul
+    calls of each shape (full width)."""
+    out = []
+
+    def add(name, cfg_name, shape, got, want, ms, plain):
+        err = require_equal(f"{name} {cfg_name} ({label}, {shape})", got,
+                            want)
+        out.append(dict(name=name, config=cfg_name, shape=shape,
+                        max_abs_err=err, ms=ms, plain_ms=plain))
+
+    for cops, rows, idx, keys, signs in caps["msm_scan"].calls:
+        S, B = idx.shape
+        cols = torch.arange(0, B, max(1, B // PLAIN_CHUNKS),
+                            device=idx.device)[:PLAIN_CHUNKS]
+        sub = [None if t is None else t[:, cols].contiguous()
+               for t in (idx, keys, signs)]
+        got, ms = cuda_once(lambda: M.msm_scan(cops, rows, idx, keys,
+                                               signs))
+        want, plain = cuda_once(lambda: M.msm_scan_plain(cops, rows, *sub))
+        add("msm_scan", config_name(cops),
+            f"S={S}, B={B}, plain on {len(cols)} chunks",
+            [g[..., cols] for g in got], want, ms, plain)
+    for cops, P, Q in caps["ec_add"].calls:
+        got, ms = cuda_once(lambda: GK.ec_add(cops, P, Q))
+        want, plain = cuda_once(lambda: GK.ec_add_plain(cops, P, Q))
+        add("ec_add", config_name(cops),
+            f"{P.shape[-1]} points (cross-rank combine)", got, want, ms,
+            plain)
+    for ctx, a, b in caps["mont_mul"].calls:
+        got, ms = cuda_once(lambda: MM.mont_mul(ctx, a, b))
+        want, plain = cuda_once(lambda: MM.mont_mul_plain(ctx, a, b))
+        add("mont_mul", f"prime {ctx.prime_id}", str(tuple(a.shape)), got,
+            want, ms, plain)
+    return out
+
+
+def _rank_proof(rank, curve_name, params_path, input_path,
+                check=False) -> dict:
+    """prove_sharded in a rank on a parameter / input file pair, with
+    its laps, peak memory, collectives, launches and op tally.  With
+    check, a second proof captures the kernels' operands, which are then
+    held against their plain versions (sharded_path_checks): the first
+    run's numbers stay those of the entry point alone."""
+    curve = {"MNT4753": MNT4753, "MNT6753": MNT6753}[curve_name]
+    params = GP.load_params(params_path, curve)
+    inputs = GP.load_input(input_path, curve, params.d, params.m)
+    world = torch.distributed.get_world_size()
+    if world > 1:
+        # start together: a rank still checking the previous proof would
+        # count in the other's first exchange
+        torch.distributed.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    with CollectiveTimer() as coll, opcount.collect() as tally:
+        proof = prove_sharded(curve, params, inputs, device=DEV,
+                              verbose=True)
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    laps = profiling.last_laps()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "proof")
+        SER.write_output(out, curve, *proof)
+        sha = sha256(out)
+    checks, wall2 = [], None
+    if check:
+        caps = {"msm_scan": Capture(M, "msm_scan", index=0),
+                "ec_add": Capture(SH, "ec_add", index=0),
+                "mont_mul": Capture(SH, "mont_mul", keep=first_of_shape(
+                    (params.d + 1) // world // 2))}
+        t1 = time.time()
+        with caps["msm_scan"], caps["ec_add"], caps["mont_mul"]:
+            again = prove_sharded(curve, params, inputs, device=DEV)
+            torch.cuda.synchronize()
+        wall2 = time.time() - t1
+        if again != proof:
+            raise AssertionError(f"{curve_name} rank {rank}: a second "
+                                 f"proof differs from the first")
+        checks = sharded_path_checks(caps, f"rank {rank}/{world}")
+        got = {k["name"] for k in checks}
+        if got != {"msm_scan", "ec_add", "mont_mul"}:
+            raise AssertionError(f"{curve_name} rank {rank}: path checks "
+                                 f"of {sorted(got)} only")
+        del caps
+        torch.cuda.empty_cache()
+    return dict(rank=rank, curve=curve_name, wall_s=wall, sha=sha,
+                proof=proof, laps=laps, peak_bytes=peak, launches=launches,
+                tally=tally, collectives=coll.calls, checks=checks,
+                wall2_s=wall2)
+
+
+def rank_world1(rank, files4) -> dict:
+    """10a: one rank on nccl, the MNT4753 2^20 proof."""
+    return _rank_proof(rank, "MNT4753", *files4)
+
+
+def streamed_inputs(n: int):
+    """10c's points (64 known multiples tiled, every 97th at infinity)
+    and scalars, the same in every rank."""
+    curve = MNT4753
+    hg, g1 = HE.g1_group(curve), HE.g1_generator(curve)
+    base = np.stack([_affine_words(hg, hg.mul(3 + 7 * j, g1), 1, curve.fq.p)
+                     for j in range(NBASE)])
+    rows = base[np.arange(n) % NBASE]
+    rows[::97, 24:] = 0
+    keys = rand_canon(np.random.default_rng(SEED + 10), curve.fr.p, (n,))
+    return rows, keys
+
+
+def rank_streamed(rank) -> dict:
+    """10c: the sharded MSM of n MNT4753 G1 points (two fused MSMs,
+    signed digits of c bits) in global blocks of blk points and in one
+    pass (n, blk, c = STREAM10)."""
+    n, blk, c = STREAM10
+    cops = get_curve_ops(MNT4753, "g1")
+    rows, keys = streamed_inputs(n)
+    world = torch.distributed.get_world_size()
+    per = n // world
+    sl = slice(rank * per, (rank + 1) * per)
+    rows_t = torch.from_numpy(np.ascontiguousarray(rows[sl])).to(DEV)
+    keys_t = torch.from_numpy(np.ascontiguousarray(keys[:, sl])).to(DEV)
+    seg = (torch.arange(rank * per, (rank + 1) * per, device=DEV) % 2)
+    out = {}
+    for name, block in (("streamed", blk), ("one pass", None)):
+        scans = M.MSM_SCAN.launches
+        ws = SH.sharded_msm_window_sums(cops, keys_t, rows_t,
+                                        M.DEFAULT_CHUNK, c, seg, 2, True,
+                                        block_points=block)
+        out[name] = (ws.cpu().numpy(), M.MSM_SCAN.launches - scans)
+    return out
+
+
+def rank_ntt(rank) -> dict:
+    """10d: this rank's shard of sharded_ntt of a random 2^NTT10_LOG2
+    vector over Fr, forward and inverse: sha256 of the words and device
+    ms."""
+    fr = MNT4753.fr
+    n = 1 << NTT10_LOG2
+    world = torch.distributed.get_world_size()
+    x = rand_canon(np.random.default_rng(SEED + 11), fr.p, (n,))
+    nl = n // world
+    xl = torch.from_numpy(np.ascontiguousarray(
+        x[:, rank * nl:(rank + 1) * nl])).to(DEV)
+    plan = SH.ShardedNttPlan(fr, n, world, rank, DEV)
+    out = {}
+    for inverse in (False, True):
+        y, ms = cuda_once(lambda: SH.sharded_ntt(plan, xl, inverse))
+        out[inverse] = (hashlib.sha256(y.cpu().numpy().tobytes())
+                        .hexdigest(), ms)
+    return out
+
+
+def rank_world2(rank, files4, files6) -> dict:
+    """10b-10d in one launch of two gloo ranks on the one card."""
+    return dict(mnt4753=_rank_proof(rank, "MNT4753", *files4, check=True),
+                mnt6753=_rank_proof(rank, "MNT6753", *files6, check=True),
+                streamed=rank_streamed(rank), ntt=rank_ntt(rank))
+
+
+def log_rank(what: str, r: dict) -> None:
+    coll = ", ".join(f"{k} {c} calls {s:.3f} s" for k, (c, s) in
+                     r["collectives"].items())
+    log(f"{what} rank {r['rank']}: prove_sharded {r['wall_s']:.2f} s, peak "
+        f"device memory {r['peak_bytes'] / 2**30:.2f} GiB; collectives "
+        f"{coll}")
+    for name, dt in r["laps"].items():
+        if name.startswith(("stage", "H pipeline (sharded", "scalar",
+                            "MSMs (points", "readback")):
+            log(f"  phase {name}: {dt:.3f} s")
+    if r["wall2_s"] is not None:
+        log(f"  second proof (no collective timer, operands captured): "
+            f"{r['wall2_s']:.2f} s")
+    log(f"  launches: {r['launches']}")
+    log("  " + opcount.report(r["tally"]).replace("\n", "\n  "))
+
+
+def scan_half(what: str, one: dict, r: dict, m: int) -> None:
+    """A rank's scan point-steps are half of the one-rank run's, up to
+    the chunk padding of its two passes and a few rows of the uneven
+    witness split, in each of the 768 / c windows."""
+    chunk, c, _ = GP.resolve_msm_cfg(m // 2 + 1, torch.device(DEV))
+    slack = (768 // c) * 2 * (chunk + 4)
+    got, full = r["tally"]["msm_scan_step"], one["tally"]["msm_scan_step"]
+    if abs(got - full / 2) > slack:
+        raise AssertionError(f"{what} rank {r['rank']}: {got} scan "
+                             f"point-steps against {full} for one rank")
+    log(f"{what} rank {r['rank']}: {got} scan point-steps, one rank "
+        f"{full} (half {full / 2:.0f}, slack {slack})")
+
+
+def sharded_phase(run4, run6) -> dict:
+    """Phase 10: prove_sharded at world 1 on nccl and at world 2 on gloo
+    (both ranks on the one card: nccl refuses two ranks on one card), the
+    streamed sharded MSM and the sharded NTT."""
+    torch.cuda.empty_cache()
+    files4, files6 = ((r["params"], r["input"]) for r in (run4, run6))
+    t0 = time.time()
+    w1, = multihost.launch_local(rank_world1, 1, (files4,), backend="nccl",
+                                 timeout=RANK_TIMEOUT)
+    log(f"10a: world 1 (nccl) launch {time.time() - t0:.1f} s")
+    log_rank(f"10a MNT4753 2^{run4['log2']} world 1", w1)
+    require_launched("10a prove_sharded", w1["launches"], PATH_KERNELS)
+    if w1["sha"] != run4["sha"]:
+        raise AssertionError("10a: the world-1 proof differs from phase 4's")
+    require_proof("10a", w1["proof"], run4["want"])
+    log(f"10a: sha256 {w1['sha']} equals phase 4's; A, B, C match the "
+        f"known logs")
+
+    t1 = time.time()
+    w2 = multihost.launch_local(rank_world2, 2, (files4, files6),
+                                backend="gloo", timeout=RANK_TIMEOUT)
+    log(f"10b-10d: world 2 (gloo, one card) launch {time.time() - t1:.1f} s")
+    for r in w2:
+        for key, run in (("mnt4753", run4), ("mnt6753", run6)):
+            p = r[key]
+            log_rank(f"10b {p['curve']} 2^{run['log2']} world 2", p)
+            require_launched(f"10b {key} rank {p['rank']}", p["launches"],
+                             PATH_KERNELS)
+            if p["sha"] != run["sha"]:
+                raise AssertionError(f"10b {key} rank {p['rank']}: the "
+                                     f"proof differs from phase 4's")
+        scan_half(f"10b MNT4753 2^{run4['log2']}", w1, r["mnt4753"],
+                  1 << run4["log2"])
+        for key in ("mnt4753", "mnt6753"):
+            for k in r[key]["checks"]:
+                log(f"10b {r[key]['curve']} rank {r[key]['rank']}: "
+                    f"{k['name']} "
+                    f"{k['config']} at {k['shape']}: kernel {k['ms']:.3f} "
+                    f"ms, plain {k['plain_ms']:.1f} ms, equal")
+    log("10b: every rank's proof equals phase 4's (MNT4753 2^20, MNT6753 "
+        "2^15)")
+
+    hg = HE.g1_group(MNT4753)
+    cops = get_curve_ops(MNT4753, "g1")
+    got = {}
+    for name in ("streamed", "one pass"):
+        sums = [r["streamed"][name][0] for r in w2]
+        if not all(np.array_equal(s, sums[0]) for s in sums):
+            raise AssertionError(f"10c {name}: the ranks' sums differ")
+        got[name] = [M.finalize_msm(hg, pts, STREAM10[2]) for pts in
+                     M.window_sums_to_host(cops, torch.from_numpy(sums[0]),
+                                           2)]
+    for i, (a, b) in enumerate(zip(got["streamed"], got["one pass"])):
+        if hg.is_zero(a) or not hg.equal(a, b):
+            raise AssertionError(f"10c MSM {i}: streamed differs")
+    scans = [(r["streamed"]["streamed"][1], r["streamed"]["one pass"][1])
+             for r in w2]
+    if any(s != STREAM10[0] // STREAM10[1] * u for s, u in scans):
+        raise AssertionError(f"10c: scan launches {scans}")
+    log(f"10c: {STREAM10[0]} points over 2 ranks in global blocks of "
+        f"{STREAM10[1]} equal "
+        f"the one pass; scan launches per rank (streamed, one pass) "
+        f"{scans}")
+
+    fr = MNT4753.fr
+    n = 1 << NTT10_LOG2
+    x = torch.from_numpy(rand_canon(np.random.default_rng(SEED + 11),
+                                    fr.p, (n,))).to(DEV)
+    plan = NttPlan(fr, n, DEV)
+    for inverse, fn in ((False, lambda: ntt(plan, x, plan.tw_fwd)),
+                        (True, lambda: intt(plan, x))):
+        y, ms = cuda_once(fn)
+        y = y.cpu().numpy()
+        want = [hashlib.sha256(np.ascontiguousarray(
+            y[:, k * n // 2:(k + 1) * n // 2]).tobytes()).hexdigest()
+            for k in range(2)]
+        shards = [r["ntt"][inverse] for r in w2]
+        if [s[0] for s in shards] != want:
+            raise AssertionError(f"10d: sharded NTT (inverse={inverse}) "
+                                 f"differs from ops/ntt on one rank")
+        log(f"10d: sharded NTT 2^{NTT10_LOG2} over 2 ranks, "
+            f"inverse={inverse}: equal "
+            f"word for word; ranks {[round(s[1], 2) for s in shards]} ms, "
+            f"one rank {ms:.2f} ms")
+    del x, plan
+    torch.cuda.empty_cache()
+    return dict(world1=w1, world2=w2)
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1366,6 +1735,8 @@ def main() -> int:
             log(f"setup at working size done at {time.time() - t0:.1f} s")
             bexp = batch_exp_full_phase(rng, results)
             log(f"batch_exp at 2^20 done at {time.time() - t0:.1f} s")
+            par = sharded_phase(run4, run6)
+            log(f"multi-device prover done at {time.time() - t0:.1f} s")
         finally:
             os.chdir(cwd)
 
@@ -1378,6 +1749,11 @@ def main() -> int:
         entry["launches_mnt6753_2p15"] = run6["launches"][name]
         entry["launches_table_proof_2p20"] = tab4["launches"][name]
         entry["launches_serve_2_proofs_2p20"] = serve4["launches"][name]
+        entry["launches_sharded_world1_2p20"] = \
+            par["world1"]["launches"][name]
+        for key, tag in (("mnt4753", "2p20"), ("mnt6753", "mnt6753_2p15")):
+            entry[f"launches_sharded_world2_{tag}"] = [
+                r[key]["launches"][name] for r in par["world2"]]
         kernels.append(entry)
     kernels[0]["launches_table_build_2p20"] = tab4["build"]["mont_mul"]
     # The other group configurations of the group add and the scan, each
@@ -1415,6 +1791,16 @@ def main() -> int:
         entry["build_ms_total"] = \
             tab["build_calls"][("ec_mixed_add", cfg)][1]
         kernels.append(entry)
+    # the kernels at the widths of phase 10b's ranks (a second proof in
+    # each rank), against their plain versions
+    for r in par["world2"]:
+        for key in ("mnt4753", "mnt6753"):
+            for k in r[key]["checks"]:
+                same = [e for e in kernels if e["name"] == k["name"]]
+                entry = next((e for e in same
+                              if e["config"] == k["config"]), same[0])
+                entry.setdefault("sharded_checks", []).append(
+                    dict(k, rank=r[key]["rank"], curve=r[key]["curve"]))
     # setup launches per kernel (all group configurations together)
     for entry in kernels:
         k = entry["name"]

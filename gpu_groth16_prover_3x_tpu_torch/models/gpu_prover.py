@@ -7,7 +7,7 @@ the reference's run_prover, cuda_prover_piecewise.cu:96-230).  One proof:
   -> stage the G1 rows (A | B1 | L | H) and the B2 rows on the device
   -> H polynomial (ops/ntt.compute_h: iFFT, coset FFT, a*b - c, / Z,
      inverse coset FFT over Fr)
-  -> witness keys out of Montgomery form (`_from_monty_keys`)
+  -> witness keys out of Montgomery form (`from_monty_keys`)
   -> one fused 4-way G1 Pippenger MSM and one G2 MSM for B2
      (ops/msm.msm_window_sums_streamed)
   -> exact host Horner epilogue (native, ops/msm.finalize_windows),
@@ -147,7 +147,7 @@ def tables_from_jax(jax_tables):
 
 # -- the prover ----------------------------------------------------------------------
 
-def _sync(device: torch.device) -> None:
+def sync_device(device: torch.device) -> None:
     """Drain the stream at a phase boundary so each block timer measures
     the work its phase issued (the reference syncs around its print_time
     calls, cuda_prover_piecewise.cu:183-196)."""
@@ -155,7 +155,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _from_monty_keys(fr_ctx: L.MontCtx, mont_cols: torch.Tensor
+def from_monty_keys(fr_ctx: L.MontCtx, mont_cols: torch.Tensor
                      ) -> torch.Tensor:
     """(24, n) Montgomery words -> standard-domain scalar words: one
     Montgomery product with the plain integer 1 (fp.tcc from_monty).  The
@@ -164,7 +164,7 @@ def _from_monty_keys(fr_ctx: L.MontCtx, mont_cols: torch.Tensor
     return mont_mul(fr_ctx, mont_cols, one)
 
 
-def _resolve_msm_cfg(m: int, device: torch.device):
+def resolve_msm_cfg(m: int, device: torch.device):
     """Chunk length, window width and digit kind for an m-variable proof.
 
     c = 16 bits from 2^16 variables, else 8: the 2^c-bucket reduction
@@ -179,14 +179,14 @@ def _resolve_msm_cfg(m: int, device: torch.device):
     return chunk_s, c, not cpu
 
 
-def _pad_rows(rows: np.ndarray, n_pad: int) -> np.ndarray:
+def pad_rows(rows: np.ndarray, n_pad: int) -> np.ndarray:
     """Pad with y == 0 rows: the serialized point at infinity."""
     out = np.zeros((n_pad, rows.shape[1]), dtype=np.int32)
     out[:rows.shape[0]] = rows
     return out
 
 
-def _round_up(n: int, q: int) -> int:
+def round_up(n: int, q: int) -> int:
     return max(q, -(-n // q) * q)
 
 
@@ -212,7 +212,7 @@ class ProverSession:
         self.hg2 = host_ec.g2_group(curve)
         d, m = params.d, params.m
         self.d, self.m = d, m
-        self.chunk_s, self.c, self.signed = _resolve_msm_cfg(m, self.device)
+        self.chunk_s, self.c, self.signed = resolve_msm_cfg(m, self.device)
         self.nL = params.L.shape[0]
         q = self.chunk_s
 
@@ -230,8 +230,8 @@ class ProverSession:
                 for t in tables)
         g1_rows = np.concatenate(parts)
         self.n_tot = g1_rows.shape[0]
-        self.n_pad = _round_up(self.n_tot, q)
-        self.g1_rows = torch.from_numpy(_pad_rows(g1_rows, self.n_pad)).to(dev)
+        self.n_pad = round_up(self.n_tot, q)
+        self.g1_rows = torch.from_numpy(pad_rows(g1_rows, self.n_pad)).to(dev)
         # MSM index per G1 row (the padding joins the last MSM)
         sizes = [len(a) for a in parts]
         sizes[-1] += self.n_pad - self.n_tot
@@ -239,13 +239,13 @@ class ProverSession:
             np.arange(len(parts)), sizes).astype(np.int64)).to(dev)
         if tables is None:
             self.n2 = m + 1
-            self.n2_pad = _round_up(self.n2, q)
+            self.n2_pad = round_up(self.n2, q)
             self.b2_rows = torch.from_numpy(
-                _pad_rows(params.B2[:self.n2], self.n2_pad)).to(dev)
+                pad_rows(params.B2[:self.n2], self.n2_pad)).to(dev)
         self.block_points = (STREAM_BLOCK if self.n_pad > STREAM_ABOVE
                              else None)
         self.plan = None
-        _sync(dev)
+        sync_device(dev)
         leave_block("stage params (host->device)")
 
     def prove(self, inputs: DeviceInput):
@@ -258,7 +258,7 @@ class ProverSession:
         ca, cb, cc, w_mont = (
             torch.from_numpy(np.ascontiguousarray(a.T)).to(dev)
             for a in (inputs.ca, inputs.cb, inputs.cc, inputs.w_mont))
-        _sync(dev)
+        sync_device(dev)
         leave_block("stage inputs (host->device)")
 
         enter_block("H pipeline (device NTT)")
@@ -266,13 +266,13 @@ class ProverSession:
             self.plan = NttPlan(self.curve.fr, d + 1, dev)
         _, h_std = compute_h(self.plan, ca, cb, cc)     # (24, d+1)
         del ca, cb, cc
-        _sync(dev)
+        sync_device(dev)
         leave_block("H pipeline (device NTT)")
 
         enter_block("scalar from_monty (device)")
-        w_keys = _from_monty_keys(self.fr_ctx, w_mont)  # (24, m+1)
+        w_keys = from_monty_keys(self.fr_ctx, w_mont)  # (24, m+1)
         del w_mont
-        _sync(dev)
+        sync_device(dev)
         leave_block("scalar from_monty (device)")
 
         if self.tables is not None:
@@ -295,7 +295,7 @@ class ProverSession:
         ws_b2 = msm_window_sums_streamed(
             self.g2, b2_keys, self.b2_rows, self.chunk_s, c, None, 1,
             self.block_points, self.signed)
-        _sync(dev)
+        sync_device(dev)
         leave_block("MSMs (device Pippenger)")
 
         enter_block("readback + host assembly")
@@ -325,7 +325,7 @@ class ProverSession:
         ws_L = straus_window_sums(
             self.g1, w_keys[:, PI1:PI1 + nL].contiguous(), L_t)
         ws_B2 = straus_window_sums(self.g2, w_all, B2_t)
-        _sync(self.device)
+        sync_device(self.device)
         leave_block("MSMs (device: Straus tables + Pippenger A/H)")
 
         enter_block("readback + host assembly")

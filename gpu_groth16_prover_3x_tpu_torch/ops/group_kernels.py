@@ -12,11 +12,13 @@ scan's inner operation for direct tests.
 Points are (3*deg, 24, B) int32 word tensors (X coefficients, then Y, then
 Z), canonical; affine operands (2*deg, 24, B); the infinity mask (B,)
 bool.  A CUDA tensor launches the kernel; a CPU tensor runs the plain
-version (ops/ec.py).  Nothing else falls back.
+version (ops/ec.py).  Nothing else falls back.  Both count their lanes
+under the operation's name (utils/opcount.py).
 """
 
 import torch
 
+from ..utils import opcount
 from . import build
 from . import limbs as L
 from .ec import CurveOps, from_limb_point, to_limb_point
@@ -79,6 +81,7 @@ def _launch(op: int, cops: CurveOps, P, Q, inf, n: int):
 def ec_add(cops: CurveOps, P, Q):
     """P + Q for two (3*deg, 24, B) point batches."""
     on_card, n = _check_points(cops, (P, 3), (Q, 3))
+    opcount.add("ec_add", n)
     if not on_card:
         return ec_add_plain(cops, P, Q)
     out = _launch(0, cops, P, Q, None, n)
@@ -88,6 +91,7 @@ def ec_add(cops: CurveOps, P, Q):
 
 def ec_dbl(cops: CurveOps, P):
     on_card, n = _check_points(cops, (P, 3))
+    opcount.add("ec_dbl", n)
     if not on_card:
         return ec_dbl_plain(cops, P)
     out = _launch(1, cops, P, None, None, n)
@@ -101,6 +105,7 @@ def ec_mixed_add(cops: CurveOps, P, xy, inf):
     on_card, n = _check_points(cops, (P, 3), (xy, 2))
     if inf.shape != (n,) or inf.dtype != torch.bool:
         raise ValueError("inf must be a (B,) bool tensor")
+    opcount.add("ec_mixed_add", n)
     if not on_card:
         return ec_mixed_add_plain(cops, P, xy, inf)
     inf8 = inf.to(torch.uint8).contiguous()

@@ -8,11 +8,13 @@ Montgomery form, and the NTT's table setup.
 `mont_mul(ctx, a, b)` takes canonical (24, *B) int32 word tensors of one
 shape and returns a*b/R mod p, canonical, same shape.  A CUDA tensor
 launches the kernel; a CPU tensor runs the plain version, the CIOS of
-ops/limbs.py on 24-bit limbs.  Nothing else falls back.
+ops/limbs.py on 24-bit limbs.  Nothing else falls back.  Both count
+their lanes as `fp_mont_mul` (utils/opcount.py).
 """
 
 import torch
 
+from ..utils import opcount
 from . import build
 from . import limbs as L
 
@@ -32,6 +34,7 @@ def mont_mul(ctx: L.MontCtx, a: torch.Tensor, b: torch.Tensor
                          f"{tuple(b.shape)}, want equal (24, ...)")
     if a.device != b.device:
         raise ValueError("mont_mul: operands on different devices")
+    opcount.add("fp_mont_mul", a.numel() // L.NWORDS)
     if a.device.type == "cpu":
         return mont_mul_plain(ctx, a, b)
     if a.device.type != "cuda":

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..host import field as HF
-from ..utils import native
+from ..utils import native, opcount
 from . import build
 from . import limbs as L
 from .ec import CurveOps, from_limb_point, to_limb_point
@@ -105,7 +105,8 @@ def msm_scan_plain(cops: CurveOps, rows, idx, keys, signs=None):
 
 
 def msm_scan(cops: CurveOps, rows, idx, keys, signs=None):
-    """The bucket scan (see msm_scan_plain for the contract)."""
+    """The bucket scan (see msm_scan_plain for the contract).  Counts
+    S * B `msm_scan_step` point-steps on either route (utils/opcount)."""
     S, B = idx.shape
     dev = rows.device
     if rows.dim() != 2 or rows.shape[1] != 2 * cops.deg * L.NWORDS:
@@ -113,6 +114,7 @@ def msm_scan(cops: CurveOps, rows, idx, keys, signs=None):
     if tuple(keys.shape) != (S, B) or (signs is not None
                                        and tuple(signs.shape) != (S, B)):
         raise ValueError("idx, keys and signs must share one (S, B) shape")
+    opcount.add("msm_scan_step", S * B)
     if dev.type == "cpu":
         return msm_scan_plain(cops, rows, idx, keys, signs)
     if dev.type != "cuda":

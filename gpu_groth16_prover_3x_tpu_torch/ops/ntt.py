@@ -73,68 +73,74 @@ class NttPlan:
         # Z on the coset is the constant g^n - 1
         self.z_coset_inv = self.ctx.mont(pow(pow(g, n, p) - 1, -1, p))
 
-    def scale(self, x: torch.Tensor, c: int) -> torch.Tensor:
-        """x times a Montgomery-form constant."""
-        return self.mul(self.ctx, x, const_words(c, x.shape[1], x.device))
+
+def scale(plan, x: torch.Tensor, c: int) -> torch.Tensor:
+    """(24, m) words times a Montgomery-form constant (`plan` gives `ctx`
+    and `mul`)."""
+    return plan.mul(plan.ctx, x, const_words(c, x.shape[1], x.device))
 
 
 def ntt(plan: NttPlan, x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
-    """In-field DFT y_k = sum_j x_j omega^(jk) on (24, n) words."""
+    """In-field DFT y_k = sum_j x_j omega^(jk) along the last axis of
+    (24, n) words, or of (24, B, n) words as B transforms at once (the
+    four-step NTT's column and row passes, parallel/sharded.py).  One
+    `mul` launch a level either way.  `plan` gives `ctx` and `mul`; `tw`
+    holds omega^j for j < n/2."""
+    if x.dim() not in (2, 3) or x.shape[0] != L.NWORDS:
+        raise ValueError(f"ntt: shape {tuple(x.shape)}, want (24, [B,] n)")
     ctx = plan.ctx
-    n = x.shape[1]
+    n = x.shape[-1]
+    B = 1 if x.dim() == 2 else x.shape[1]
     logn = n.bit_length() - 1
-    v = x.reshape(L.NWORDS, 1, n)
+    v = x.reshape(L.NWORDS, B, 1, n)
     for lvl in range(logn - 1, -1, -1):
-        _, mp, g2 = v.shape
-        v = v.reshape(L.NWORDS, mp, 2, g2 // 2)
-        E, O = v[:, :, 0, :], v[:, :, 1, :]
+        mp, g2 = v.shape[2:]
+        v = v.reshape(L.NWORDS, B, mp, 2, g2 // 2)
+        E, O = v[:, :, :, 0, :], v[:, :, :, 1, :]
         w = tw[:, ::(1 << lvl)][:, :mp]
-        w = w[:, :, None].expand(L.NWORDS, mp, g2 // 2)
+        w = w[:, None, :, None].expand(L.NWORDS, B, mp, g2 // 2)
         t = plan.mul(ctx, O.reshape(L.NWORDS, -1).contiguous(),
                      w.reshape(L.NWORDS, -1).contiguous())
-        t = t.reshape(L.NWORDS, mp, g2 // 2)
+        t = t.reshape(L.NWORDS, B, mp, g2 // 2)
         Ec = E.contiguous()
-        v = torch.cat([add_words(ctx, Ec, t), sub_words(ctx, Ec, t)], dim=1)
-    return v.reshape(L.NWORDS, n)
+        v = torch.cat([add_words(ctx, Ec, t), sub_words(ctx, Ec, t)], dim=2)
+    return v.reshape(x.shape)
 
 
 def intt(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:
-    return plan.scale(ntt(plan, x, plan.tw_inv), plan.n_inv)
+    return scale(plan, ntt(plan, x, plan.tw_inv), plan.n_inv)
 
 
-def coset_fft(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:
-    """FFT on the coset g*<omega> (basic_radix2_domain.tcc:84-89)."""
-    return ntt(plan, plan.mul(plan.ctx, x, plan.coset), plan.tw_fwd)
-
-
-def icoset_fft(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:
-    """Inverse coset FFT (basic_radix2_domain.tcc:91-97)."""
-    return plan.mul(plan.ctx, intt(plan, x), plan.coset_inv)
-
-
-def divide_by_z_on_coset(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:
-    """Multiply by Z(g omega^i)^-1 = (g^n - 1)^-1, constant on the coset
-    (basic_radix2_domain.tcc:126-134)."""
-    return plan.scale(x, plan.z_coset_inv)
-
-
-def compute_h(plan: NttPlan, ca, cb, cc):
+def compute_h(plan, ca, cb, cc, dft=None):
     """The witness-map H pipeline (libsnark/main.cpp:89-148): iFFT then
-    coset FFT of a, b and c, H = a*b - c on the coset, divide by Z, inverse
-    coset FFT.  Inputs (24, n) Montgomery words.
+    coset FFT of a, b and c (basic_radix2_domain.tcc:84-89), H = a*b - c
+    on the coset, divide by Z(g omega^i) = g^n - 1, a constant on the
+    coset (:126-134), inverse coset FFT (:91-97).  Inputs (24, n)
+    Montgomery words.
+
+    dft(x, inverse) is the transform, by default ntt / intt on `plan`;
+    parallel/prover.py passes the sharded one on a rank's (24, n/D)
+    shards, with the rank's slice of the coset tables in its plan.
 
     Returns (h_mont, h_std): the Montgomery coefficients and the
     standard-domain values (the H MSM's scalars), both (24, n)."""
-    ctx = plan.ctx
-    a = coset_fft(plan, intt(plan, ca))
-    b = coset_fft(plan, intt(plan, cb))
-    h = plan.mul(ctx, a, b)
+    ctx, mul = plan.ctx, plan.mul
+    if dft is None:
+        def dft(x, inverse):
+            return intt(plan, x) if inverse else ntt(plan, x, plan.tw_fwd)
+
+    def coset_fft(x):
+        return dft(mul(ctx, x, plan.coset), False)
+
+    a = coset_fft(dft(ca, True))
+    b = coset_fft(dft(cb, True))
+    h = mul(ctx, a, b)
     del a, b
-    c = coset_fft(plan, intt(plan, cc))
+    c = coset_fft(dft(cc, True))
     h = sub_words(ctx, h, c)
     del c
-    h = icoset_fft(plan, divide_by_z_on_coset(plan, h))
+    h = mul(ctx, dft(scale(plan, h, plan.z_coset_inv), True), plan.coset_inv)
     # x*R -> x: a Montgomery product with the plain integer 1 (the output
     # is already canonical, so no extra subtract as in fp.tcc from_monty)
-    h_std = plan.mul(ctx, h, const_words(1, h.shape[1], h.device))
+    h_std = mul(ctx, h, const_words(1, h.shape[1], h.device))
     return h, h_std

@@ -362,3 +362,92 @@ def test_batch_exp_on_card_matches_host(curve, group, windowed,
     want = SD.affine_rows(curve, hg.deg, [hg.to_affine(hg.mul(s % r, base))
                                           for s in sc])
     assert np.array_equal(rows, want)
+
+
+# -- the multi-device prover: two gloo ranks on one card, nccl at world 1 -----
+
+def multiples_rows(curve, group: str, n: int) -> np.ndarray:
+    """(n, 2*deg*24) affine rows tiling 64 known multiples (3 + 7j) * G,
+    every 97th row the point at infinity."""
+    from gpu_groth16_prover_3x_tpu_torch.host import ec as HE
+    hg = HE.g1_group(curve) if group == "g1" else HE.g2_group(curve)
+    gen = HE.g1_generator(curve) if group == "g1" else HE.g2_generator(curve)
+    p = curve.fq.p
+    base = []
+    for j in range(64):
+        x, y = hg.to_affine(hg.mul(3 + 7 * j, gen))
+        cs = [x, y] if group == "g1" else list(x) + list(y)
+        base.append(np.concatenate([L.int_to_words(v * (1 << 768) % p)
+                                    for v in cs]))
+    rows = np.stack(base)[np.arange(n) % 64]
+    rows[::97, rows.shape[1] // 2:] = 0
+    return np.ascontiguousarray(rows)
+
+
+def test_sharded_ntt_two_ranks_on_card():
+    """sharded_ntt at n = 2^12 over two gloo ranks on the one card equals
+    ops/ntt.ntt on one rank, forward and inverse, word for word."""
+    card()
+    import torch_parallel_ranks as ranks
+    from gpu_groth16_prover_3x_tpu_torch.ops.ntt import NttPlan, intt, ntt
+    from gpu_groth16_prover_3x_tpu_torch.parallel import multihost
+    fr = MNT4753.fr
+    n = 1 << 12
+    x = canon(np.random.default_rng(5), fr.p, n).numpy()
+    shards = multihost.launch_local(ranks.ntt_rank, 2, ("MNT4753", x, None),
+                                    backend="gloo", timeout=600)
+    plan = NttPlan(fr, n, "cuda")
+    xt = torch.from_numpy(x).cuda()
+    for k, want in enumerate((ntt(plan, xt, plan.tw_fwd), intt(plan, xt))):
+        got = np.concatenate([s[k] for s in shards], 1)
+        assert np.array_equal(got, want.cpu().numpy())
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"], ids=["G1", "Fq2"])
+def test_sharded_msm_two_ranks_on_card(group):
+    """sharded_msm_window_sums of 2^12 MNT4753 points over two gloo ranks
+    on the one card (one pass, two global blocks combined) finalises to
+    the one-rank MSM's group element, and with block_points and
+    combine=False the ranks' sums add up to it."""
+    dev = card()
+    import torch_parallel_ranks as ranks
+    from gpu_groth16_prover_3x_tpu_torch.host import ec as HE
+    from gpu_groth16_prover_3x_tpu_torch.parallel import multihost
+    n, c = 1 << 12, 8
+    rows = multiples_rows(MNT4753, group, n)
+    keys = canon(np.random.default_rng(6), MNT4753.fr.p, n).numpy()
+    out = multihost.launch_local(
+        ranks.msm_rank, 2, ("MNT4753", group, keys, rows, 128, c, True,
+                            n // 2, None), backend="gloo", timeout=600)
+    cops = get_curve_ops(MNT4753, group)
+    hg = HE.g1_group(MNT4753) if group == "g1" else HE.g2_group(MNT4753)
+    one = M.msm_window_sums(cops, torch.from_numpy(keys).to(dev),
+                            torch.from_numpy(rows).to(dev), 128, c,
+                            signed=True)
+    want, = M.finalize_windows(cops, hg, one, c)
+    assert not hg.is_zero(want)
+    assert all(np.array_equal(a, b) for a, b in zip(out[0], out[1]))
+    for ws in out[0][:2]:
+        got, = M.finalize_windows(cops, hg, torch.from_numpy(ws), c)
+        assert hg.equal(got, want)
+    total = hg.zero
+    for ws in out[0][2]:
+        total = hg.add(total, M.finalize_windows(
+            cops, hg, torch.from_numpy(ws), c)[0])
+    assert hg.equal(total, want)
+
+
+def test_prove_sharded_world_one_nccl_fixture():
+    """prove_sharded at world 1 on nccl reproduces the committed hash of
+    the MNT4753 fixture."""
+    card()
+    import torch_parallel_ranks as ranks
+    from gpu_groth16_prover_3x_tpu_torch.parallel import multihost
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                       "torch_port")
+    with open(os.path.join(fix, "SHA256SUMS")) as f:
+        want = dict(reversed(line.split()) for line in f if line.strip())
+    out, = multihost.launch_local(ranks.prove_rank, 1, ("MNT4753", None),
+                                  backend="nccl", timeout=600)
+    assert out["sha"] == want["MNT4753-output"]
+    assert out["tally"]["msm_scan_step"] > 0

@@ -155,6 +155,10 @@ def test_port_imports_nothing_of_jax():
         "import gpu_groth16_prover_3x_tpu_torch.host.pairing\n"
         "import gpu_groth16_prover_3x_tpu_torch.utils.native\n"
         "import gpu_groth16_prover_3x_tpu_torch.utils.serialization\n"
+        "import gpu_groth16_prover_3x_tpu_torch.utils.opcount\n"
+        "import gpu_groth16_prover_3x_tpu_torch.parallel.multihost\n"
+        "import gpu_groth16_prover_3x_tpu_torch.parallel.sharded\n"
+        "import gpu_groth16_prover_3x_tpu_torch.parallel.prover\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib',"
         " 'gpu_groth16_prover_3x_tpu') or m.startswith("
         "('jax.', 'jaxlib.', 'gpu_groth16_prover_3x_tpu.'))]\n"
