@@ -77,7 +77,21 @@ Phases (any failure exits non-zero before the result line):
      global blocks of 2^14 equals the one pass.  10d: sharded_ntt at
      2^20 over the 2 ranks equals ops/ntt on one rank, forward and
      inverse, word for word.  A rank that raises or outlives its
-     timeout fails the phase.
+     timeout fails the phase;
+ 11. streamed and host-resident query rows.  11a: an MNT4753 proof at
+     d + 1 = 2^21 through prove_files with no forcing streams its 2^23 G1
+     rows in 4 blocks of 2^21 and its B2 rows in 2 (checked by the scan
+     launches per configuration) and equals its known logs; the plain H
+     pipeline is left to phase 4's 2^20 proof.  11b: phase 4's MNT4753
+     2^20 files in two sessions with blocks of 2^19 points, rows resident
+     and rows in host memory (resident_bytes = 0): both proofs have phase
+     4's sha256, the host session's peak device memory is at least half
+     the rows' bytes below the resident one's, the uploads on the copy
+     stream are timed (CUDA events) beside each MSM lap, and the first
+     scan of each MSM in a second host-resident proof is held against
+     the plain scan.  11c: prove_sharded at world 2 on gloo with each
+     rank's G1 rows in host memory, MNT6753 2^15 in global blocks of
+     2^16: every rank's proof equals phase 4's.
 Every phase sets the launch counts to 0 before the run it reads and fails
 if a kernel of that run's path never launched.
 The last lines are the kernel JSON, the card line and the result line.
@@ -89,6 +103,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -553,6 +568,36 @@ class KernelTimer:
         return out
 
 
+class UploadTimer:
+    """CUDA events around each call of ops/msm.upload_block, recorded on
+    the stream it runs on (the copy stream of the host-resident rows):
+    totals() gives (uploads, summed device ms, bytes)."""
+
+    def __enter__(self):
+        self.saved = M.upload_block
+        self.events = []
+
+        def timed(pinned, device):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = self.saved(pinned, device)
+            e1.record()
+            self.events.append((e0, e1, pinned.numel() * 4))
+            return out
+        M.upload_block = timed
+        return self
+
+    def __exit__(self, *exc):
+        M.upload_block = self.saved
+
+    def totals(self):
+        torch.cuda.synchronize()
+        return (len(self.events),
+                sum(e0.elapsed_time(e1) for e0, e1, _ in self.events),
+                sum(nb for _, _, nb in self.events))
+
+
 class Capture:
     """Keeps the arguments of calls of a module attribute (a wrapper the
     callers look up at each call, as KernelTimer's targets): of the calls
@@ -590,8 +635,11 @@ TABLE_TARGETS = {"straus ec_add": (GK, "ec_add"),
 
 
 def reset_counts() -> None:
+    """Just before a run: its launch counts from 0, and only its own
+    block laps in profiling.last_laps()."""
     for k in COUNTERS.values():
         k.launches = 0
+    profiling.clear_laps()
 
 
 def counts() -> dict:
@@ -681,7 +729,10 @@ def require_proof(what: str, got, want) -> None:
                                  f"known logs")
 
 
-def full_proof(curve, log2: int, workdir: str, rng):
+def full_proof(curve, log2: int, workdir: str, rng, plain_h: bool = True):
+    """One proof through prove_files on synthetic files of a 2^log2
+    domain, checked against the known logs; with plain_h, the kernels' H
+    pipeline also against the plain one on the card."""
     t0 = time.time()
     params, inp, ks, logs, values = write_synthetic(curve, log2, workdir,
                                                     rng)
@@ -710,12 +761,18 @@ def full_proof(curve, log2: int, workdir: str, rng):
 
     # H: kernels against the plain pipeline on the card, same inputs
     want, (h_k, dev_in) = expected_proof(curve, log2, ks, logs, values)
-    h_p = compute_h(NttPlan(curve.fr, 1 << log2, DEV,
-                            mul=MM.mont_mul_plain), *dev_in)
-    require_equal(f"{curve.name} H pipeline", h_k, h_p)
+    if plain_h:
+        h_p = compute_h(NttPlan(curve.fr, 1 << log2, DEV,
+                                mul=MM.mont_mul_plain), *dev_in)
+        require_equal(f"{curve.name} H pipeline", h_k, h_p)
+        h_note = "H equals the plain pipeline"
+    else:
+        h_note = ("the plain H pipeline is left to the 2^20 proof of "
+                  "phase 4 (about 12 s of plain mont_mul at this size)")
+    del h_k, dev_in
     require_proof(f"{curve.name} 2^{log2}", read_proof(out, curve), want)
     log(f"{curve.name} 2^{log2}: A, B, C match the known logs (m = "
-        f"{1 << log2}); H equals the plain pipeline")
+        f"{1 << log2}); {h_note}")
     return dict(wall_s=wall, peak_bytes=peak, phases=laps,
                 launches=launches, in_proof=in_proof, params=params,
                 input=inp, output=out, sha=sha256(out), want=want, ks=ks,
@@ -1353,6 +1410,26 @@ def first_of_shape(min_lanes: int):
     return keep
 
 
+def captured_scan_check(args, label: str) -> dict:
+    """The bucket scan on the operands a run gave it, against its plain
+    version on the card: the plain side on PLAIN_CHUNKS of its chunks,
+    spread over its windows."""
+    cops, rows, idx, keys, signs = args
+    S, B = idx.shape
+    cols = torch.arange(0, B, max(1, B // PLAIN_CHUNKS),
+                        device=idx.device)[:PLAIN_CHUNKS]
+    sub = [None if t is None else t[:, cols].contiguous()
+           for t in (idx, keys, signs)]
+    got, ms = cuda_once(lambda: M.msm_scan(cops, rows, idx, keys, signs))
+    want, plain = cuda_once(lambda: M.msm_scan_plain(cops, rows, *sub))
+    cfg_name = config_name(cops)
+    shape = f"S={S}, B={B}, plain on {len(cols)} chunks"
+    err = require_equal(f"msm_scan {cfg_name} ({label}, {shape})",
+                        [g[..., cols] for g in got], want)
+    return dict(name="msm_scan", config=cfg_name, shape=shape,
+                max_abs_err=err, ms=ms, plain_ms=plain)
+
+
 def sharded_path_checks(caps: dict, label: str) -> list:
     """The kernels on the operands a rank's prove_sharded gave them,
     against their plain versions on the card: the first bucket scan of
@@ -1367,18 +1444,8 @@ def sharded_path_checks(caps: dict, label: str) -> list:
         out.append(dict(name=name, config=cfg_name, shape=shape,
                         max_abs_err=err, ms=ms, plain_ms=plain))
 
-    for cops, rows, idx, keys, signs in caps["msm_scan"].calls:
-        S, B = idx.shape
-        cols = torch.arange(0, B, max(1, B // PLAIN_CHUNKS),
-                            device=idx.device)[:PLAIN_CHUNKS]
-        sub = [None if t is None else t[:, cols].contiguous()
-               for t in (idx, keys, signs)]
-        got, ms = cuda_once(lambda: M.msm_scan(cops, rows, idx, keys,
-                                               signs))
-        want, plain = cuda_once(lambda: M.msm_scan_plain(cops, rows, *sub))
-        add("msm_scan", config_name(cops),
-            f"S={S}, B={B}, plain on {len(cols)} chunks",
-            [g[..., cols] for g in got], want, ms, plain)
+    for args in caps["msm_scan"].calls:
+        out.append(captured_scan_check(args, label))
     for cops, P, Q in caps["ec_add"].calls:
         got, ms = cuda_once(lambda: GK.ec_add(cops, P, Q))
         want, plain = cuda_once(lambda: GK.ec_add_plain(cops, P, Q))
@@ -1394,9 +1461,10 @@ def sharded_path_checks(caps: dict, label: str) -> list:
 
 
 def _rank_proof(rank, curve_name, params_path, input_path,
-                check=False) -> dict:
-    """prove_sharded in a rank on a parameter / input file pair, with
-    its laps, peak memory, collectives, launches and op tally.  With
+                check=False, **options) -> dict:
+    """prove_sharded in a rank on a parameter / input file pair (options:
+    its block_points and resident_bytes), with its laps, peak memory,
+    collectives, uploads of host rows, launches and op tally.  With
     check, a second proof captures the kernels' operands, which are then
     held against their plain versions (sharded_path_checks): the first
     run's numbers stay those of the entry point alone."""
@@ -1412,9 +1480,10 @@ def _rank_proof(rank, curve_name, params_path, input_path,
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.time()
-    with CollectiveTimer() as coll, opcount.collect() as tally:
+    with CollectiveTimer() as coll, UploadTimer() as uploads, \
+            opcount.collect() as tally:
         proof = prove_sharded(curve, params, inputs, device=DEV,
-                              verbose=True)
+                              verbose=True, **options)
         torch.cuda.synchronize()
     wall = time.time() - t0
     launches = counts()
@@ -1448,7 +1517,7 @@ def _rank_proof(rank, curve_name, params_path, input_path,
     return dict(rank=rank, curve=curve_name, wall_s=wall, sha=sha,
                 proof=proof, laps=laps, peak_bytes=peak, launches=launches,
                 tally=tally, collectives=coll.calls, checks=checks,
-                wall2_s=wall2)
+                wall2_s=wall2, uploads=uploads.totals())
 
 
 def rank_world1(rank, files4) -> dict:
@@ -1639,6 +1708,177 @@ def sharded_phase(run4, run6) -> dict:
     return dict(world1=w1, world2=w2)
 
 
+# -- phase 11: streamed and host-resident query rows ------------------------
+
+STREAM11_LOG2 = 21           # 11a: MNT4753 d + 1 = 2^21 streams by default
+HOST11_BLOCK = 1 << 19       # 11b: points per block in both sessions
+SHARDED11_BLOCK = 1 << 16    # 11c: global block of the MNT6753 proof
+MSM_LAP = "MSMs (device Pippenger)"
+
+
+def scans_per_pass(points: int, chunk: int, c: int) -> int:
+    """Scan launches of one msm_window_sums pass over `points` points:
+    768 / c windows, as many a launch as ops/msm.py fits."""
+    nwin = 768 // c
+    wb = M._fit_block(nwin, min(max(1, M.SCAN_LANES // (points // chunk)),
+                                max(1, M.SCAN_POINTS // points)))
+    return nwin // wb
+
+
+def streamed_default_phase(workdir: str, rng) -> dict:
+    """11a: an MNT4753 proof at d + 1 = 2^21 through prove_files with no
+    forcing: 2^23 G1 rows, past STREAM_ABOVE, go in 4 blocks of
+    STREAM_BLOCK and the 2^21 + 1 B2 rows in 2, their rows resident."""
+    curve, log2 = MNT4753, STREAM11_LOG2
+    d1 = 1 << log2
+    n_g1 = 2 * (d1 + 1) + (d1 - 1) + (d1 - 1)
+    chunk, c, _ = GP.resolve_msm_cfg(d1, torch.device(DEV))
+    n_pad, n2_pad = GP.round_up(n_g1, chunk), GP.round_up(d1 + 1, chunk)
+    blocks = {}
+    for cfg, n in ((0, n_pad), (1, n2_pad)):
+        nblk = -(-n // GP.STREAM_BLOCK)
+        per = GP.round_up(-(-n // nblk), chunk)
+        blocks[cfg] = (nblk, per, nblk * scans_per_pass(per, chunk, c))
+    if n_pad <= GP.STREAM_ABOVE or blocks[0][0] != 4:
+        raise AssertionError(f"11a: {n_pad} G1 rows would not stream in 4 "
+                             f"blocks")
+    # a directory of its own: phase 4's files of the same names are read
+    # again in 11b
+    sub = os.path.join(workdir, f"2p{log2}")
+    os.makedirs(sub)
+    run = full_proof(curve, log2, sub, rng, plain_h=False)
+    for cfg, (nblk, per, want) in blocks.items():
+        got = run["in_proof"].get(("msm_scan", cfg), (0, 0.0))[0]
+        if got != want:
+            raise AssertionError(f"11a: {got} scan launches in cfg {cfg}, "
+                                 f"want {nblk} blocks x "
+                                 f"{want // nblk}")
+        log(f"11a: cfg {cfg}: {nblk} blocks of {per} points, {got} scan "
+            f"launches ({want // nblk} a block)")
+    shutil.rmtree(sub)
+    del run["window_sums"]
+    return run
+
+
+def host_resident_phase(run4) -> dict:
+    """11b: phase 4's MNT4753 2^20 files through two sessions with blocks
+    of HOST11_BLOCK points: rows resident, and rows in host memory
+    (resident_bytes = 0).  Both proofs have phase 4's sha256; the host
+    session's peak device memory is at least half the rows' bytes below
+    the resident one's; the copy stream's uploads are timed beside each
+    MSM lap.  A second host-resident proof captures the operands of the
+    first scan of each MSM, held against the plain scan."""
+    curve = MNT4753
+    params = GP.load_params(run4["params"], curve)
+    inputs = GP.load_input(run4["input"], curve, params.d, params.m)
+    out = {}
+
+    def proof_sha(proof) -> str:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "proof")
+            SER.write_output(path, curve, *proof)
+            return sha256(path)
+
+    for name, opts in (("resident", {}), ("host", {"resident_bytes": 0})):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.time()
+        with UploadTimer() as uploads:
+            sess = GP.ProverSession(curve, params, DEV,
+                                    block_points=HOST11_BLOCK, **opts)
+            proof = sess.prove(inputs)
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        r = dict(wall_s=wall, peak_bytes=torch.cuda.max_memory_allocated(),
+                 launches=counts(), laps=profiling.last_laps(),
+                 uploads=uploads.totals(), resident=sess.resident,
+                 row_bytes=4 * (sess.n_pad * sess.g1_rows.shape[1]
+                                + sess.n2_pad * sess.b2_rows.shape[1]))
+        if r["resident"] != (name == "resident"):
+            raise AssertionError(f"11b {name}: resident={sess.resident}")
+        if proof_sha(proof) != run4["sha"]:
+            raise AssertionError(f"11b {name}: the proof differs from "
+                                 f"phase 4's")
+        require_launched(f"11b {name}", r["launches"], PATH_KERNELS)
+        n_up, up_ms, up_bytes = r["uploads"]
+        log(f"11b {name} rows, blocks of {HOST11_BLOCK}: session + proof "
+            f"{wall:.2f} s, peak device memory "
+            f"{r['peak_bytes'] / 2**30:.3f} GiB, sha256 equals phase 4's")
+        for lap in ("stage params (host->device)", "H pipeline (device NTT)",
+                    MSM_LAP):
+            log(f"  phase {lap}: {r['laps'][lap]:.3f} s")
+        log(f"  uploads on the copy stream: {n_up}, {up_ms:.1f} ms of "
+            f"device time for {up_bytes / 1e9:.3f} GB"
+            + (f" ({up_bytes / up_ms / 1e6:.1f} GB/s)" if up_ms else "")
+            + f", beside the MSM lap of {r['laps'][MSM_LAP] * 1e3:.1f} ms")
+        log(f"  launches: {r['launches']}")
+        if name == "host":
+            if n_up == 0:
+                raise AssertionError("11b: no upload on the copy stream")
+            cap = Capture(M, "msm_scan", index=0)
+            with cap:
+                again = sess.prove(inputs)
+                torch.cuda.synchronize()
+            if again != proof:
+                raise AssertionError("11b: a second host-resident proof "
+                                     "differs from the first")
+            r["checks"] = [captured_scan_check(args, "11b host-resident")
+                           for args in cap.calls]
+            for k in r["checks"]:
+                log(f"11b: msm_scan {k['config']} on the first "
+                    f"host-resident block at {k['shape']}: kernel "
+                    f"{k['ms']:.3f} ms, plain {k['plain_ms']:.1f} ms, "
+                    f"equal")
+            del cap
+        del sess, proof
+        out[name] = r
+    gap = out["resident"]["peak_bytes"] - out["host"]["peak_bytes"]
+    need = out["resident"]["row_bytes"] / 2
+    log(f"11b: peak gap {gap / 2**30:.3f} GiB, rows "
+        f"{out['resident']['row_bytes'] / 2**30:.3f} GiB (need at least "
+        f"{need / 2**30:.3f})")
+    if gap < need:
+        raise AssertionError(f"11b: host-resident peak only "
+                             f"{gap / 2**30:.3f} GiB below the resident "
+                             f"one")
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_host_resident(rank, files6) -> dict:
+    """11c: prove_sharded with each rank's G1 rows in host memory."""
+    return _rank_proof(rank, "MNT6753", *files6,
+                       block_points=SHARDED11_BLOCK, resident_bytes=0)
+
+
+def host_sharded_phase(run6) -> list:
+    """11c: prove_sharded at world 2 on gloo, both ranks on the one card,
+    MNT6753 2^15 with resident_bytes = 0 and global blocks of
+    SHARDED11_BLOCK: every rank's proof equals phase 4's."""
+    t0 = time.time()
+    ranks = multihost.launch_local(rank_host_resident, 2,
+                                   ((run6["params"], run6["input"]),),
+                                   backend="gloo", timeout=RANK_TIMEOUT)
+    log(f"11c: world 2 (gloo, one card) launch {time.time() - t0:.1f} s")
+    for r in ranks:
+        log_rank(f"11c MNT6753 2^{run6['log2']} host-resident", r)
+        n_up, up_ms, up_bytes = r["uploads"]
+        log(f"  uploads on the copy stream: {n_up}, {up_ms:.1f} ms for "
+            f"{up_bytes / 1e9:.3f} GB")
+        require_launched(f"11c rank {r['rank']}", r["launches"],
+                         PATH_KERNELS)
+        if n_up == 0:
+            raise AssertionError(f"11c rank {r['rank']}: no upload")
+        if r["sha"] != run6["sha"]:
+            raise AssertionError(f"11c rank {r['rank']}: the proof differs "
+                                 f"from phase 4's")
+    log("11c: every rank's host-resident proof equals phase 4's (MNT6753 "
+        "2^15)")
+    return ranks
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1737,6 +1977,14 @@ def main() -> int:
             log(f"batch_exp at 2^20 done at {time.time() - t0:.1f} s")
             par = sharded_phase(run4, run6)
             log(f"multi-device prover done at {time.time() - t0:.1f} s")
+            run21 = streamed_default_phase(workdir, rng)
+            log(f"11a default-streamed 2^21 proof done at "
+                f"{time.time() - t0:.1f} s")
+            host = host_resident_phase(run4)
+            log(f"11b host-resident rows done at {time.time() - t0:.1f} s")
+            host_par = host_sharded_phase(run6)
+            log(f"11c host-resident sharded proof done at "
+                f"{time.time() - t0:.1f} s")
         finally:
             os.chdir(cwd)
 
@@ -1754,7 +2002,14 @@ def main() -> int:
         for key, tag in (("mnt4753", "2p20"), ("mnt6753", "mnt6753_2p15")):
             entry[f"launches_sharded_world2_{tag}"] = [
                 r[key]["launches"][name] for r in par["world2"]]
+        entry["launches_streamed_2p21"] = run21["launches"][name]
+        entry["launches_resident_blocks_2p20"] = \
+            host["resident"]["launches"][name]
+        entry["launches_host_resident_2p20"] = host["host"]["launches"][name]
+        entry["launches_host_resident_sharded_mnt6753_2p15"] = [
+            r["launches"][name] for r in host_par]
         kernels.append(entry)
+    kernels[3]["host_resident_checks"] = host["host"]["checks"]
     kernels[0]["launches_table_build_2p20"] = tab4["build"]["mont_mul"]
     # The other group configurations of the group add and the scan, each
     # with its own launches in the proof that runs it.

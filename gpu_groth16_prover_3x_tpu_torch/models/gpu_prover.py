@@ -4,12 +4,14 @@ The counterpart of gpu_groth16_prover_3x_tpu/models/tpu_prover.py (and of
 the reference's run_prover, cuda_prover_piecewise.cu:96-230).  One proof:
 
   load params / input (raw Montgomery words, a bitcast of the file)
-  -> stage the G1 rows (A | B1 | L | H) and the B2 rows on the device
+  -> stage the G1 rows (A | B1 | L | H) and the B2 rows on the device,
+     or keep them in host memory past `resident_bytes` (ProverSession)
   -> H polynomial (ops/ntt.compute_h: iFFT, coset FFT, a*b - c, / Z,
      inverse coset FFT over Fr)
   -> witness keys out of Montgomery form (`from_monty_keys`)
   -> one fused 4-way G1 Pippenger MSM and one G2 MSM for B2
-     (ops/msm.msm_window_sums_streamed)
+     (ops/msm.msm_window_sums_streamed: blocks of points, host rows
+     uploaded a block at a time on a copy stream)
   -> exact host Horner epilogue (native, ops/msm.finalize_windows),
      C = Ht + Lt + r * Bt1, write_output.
 
@@ -190,8 +192,51 @@ def round_up(n: int, q: int) -> int:
     return max(q, -(-n // q) * q)
 
 
+def resolve_resident_bytes(resident_bytes, device: torch.device) -> float:
+    """The most bytes of query rows a session keeps on its device: the
+    argument, else $GROTH16_MSM_RESIDENT_BYTES (as in the JAX package),
+    else 3/8 of the card's memory (the JAX package's 6 of 16 GiB carried
+    over; on an 80 GB H100 about 31.9 GB, so MNT4753 rows stay resident up
+    to d + 1 = 2^24, 19.3 GB, and stay on the host from 2^25, 38.7 GB).
+    On the CPU every row is resident: the device is host memory."""
+    if resident_bytes is None:
+        env = os.environ.get("GROTH16_MSM_RESIDENT_BYTES")
+        if env is not None:
+            resident_bytes = int(env)
+        elif device.type == "cuda":
+            resident_bytes = torch.cuda.get_device_properties(
+                device).total_memory * 3 // 8
+        else:
+            resident_bytes = float("inf")
+    return resident_bytes
+
+
+def resolve_block_points(block_points, n_pad: int, resident: bool):
+    """Points per streamed MSM block, or None for one pass: the argument
+    (0 = one pass), else $GROTH16_MSM_BLOCK_POINTS (0 = one pass; as
+    tpu_prover.py:331-335), else STREAM_BLOCK past STREAM_ABOVE rows.
+    Host-resident rows always go in blocks of at most STREAM_BLOCK."""
+    if block_points is None:
+        env = os.environ.get("GROTH16_MSM_BLOCK_POINTS")
+        if env is not None:
+            block_points = int(env)
+        else:
+            block_points = STREAM_BLOCK if n_pad > STREAM_ABOVE else 0
+    if not resident:
+        block_points = min(block_points or STREAM_BLOCK, STREAM_BLOCK)
+    return block_points or None
+
+
+def stage_rows(rows: np.ndarray, n_pad: int, device, resident: bool):
+    """Padded query rows on the device, or kept on the host as contiguous
+    numpy (ops/msm.msm_window_sums_streamed uploads them a block at a
+    time)."""
+    padded = pad_rows(rows, n_pad)
+    return torch.from_numpy(padded).to(device) if resident else padded
+
+
 class ProverSession:
-    """One parameter set staged on a device; `prove` runs one proof.
+    """One parameter set staged for a device; `prove` runs one proof.
 
         sess = ProverSession(curve, params, device="cuda")
         proof = sess.prove(inputs)
@@ -199,10 +244,20 @@ class ProverSession:
     With `tables` (B1_t, B2_t, L_t), word rows as host arrays or tensors
     already on the device (load_preprocessed, or the tables of
     preprocess_device.multiples_rows), B1, B2 and L run the table MSM and
-    only A and H are staged for Pippenger."""
+    only A and H are staged for Pippenger.
+
+    The Pippenger query rows (G1 and B2; A and H alone with tables) stay
+    on the device when they take at most `resident_bytes`
+    (resolve_resident_bytes); otherwise they stay in host memory and each
+    MSM uploads them a block at a time, each upload under the card's
+    work on the block before (the JAX package's beyond-HBM path,
+    tpu_prover.py:307-327).  `block_points` (resolve_block_points) streams the MSMs in
+    blocks of that many points.  A serve session keeps its host rows
+    between proofs.  Proof bytes depend on neither."""
 
     def __init__(self, curve: CurveParams, params: DeviceParams,
-                 device="cuda", tables=None):
+                 device="cuda", tables=None, resident_bytes=None,
+                 block_points=None):
         self.device = torch.device(device)
         self.curve = curve
         self.g1 = get_curve_ops(curve, "g1")
@@ -231,19 +286,25 @@ class ProverSession:
         g1_rows = np.concatenate(parts)
         self.n_tot = g1_rows.shape[0]
         self.n_pad = round_up(self.n_tot, q)
-        self.g1_rows = torch.from_numpy(pad_rows(g1_rows, self.n_pad)).to(dev)
+        row_bytes = self.n_pad * g1_rows.shape[1] * 4
+        if tables is None:
+            self.n2 = m + 1
+            self.n2_pad = round_up(self.n2, q)
+            row_bytes += self.n2_pad * params.B2.shape[1] * 4
+        self.resident = row_bytes <= resolve_resident_bytes(resident_bytes,
+                                                            dev)
+        self.g1_rows = stage_rows(g1_rows, self.n_pad, dev, self.resident)
+        del g1_rows
         # MSM index per G1 row (the padding joins the last MSM)
         sizes = [len(a) for a in parts]
         sizes[-1] += self.n_pad - self.n_tot
         self.seg = torch.from_numpy(np.repeat(
             np.arange(len(parts)), sizes).astype(np.int64)).to(dev)
         if tables is None:
-            self.n2 = m + 1
-            self.n2_pad = round_up(self.n2, q)
-            self.b2_rows = torch.from_numpy(
-                pad_rows(params.B2[:self.n2], self.n2_pad)).to(dev)
-        self.block_points = (STREAM_BLOCK if self.n_pad > STREAM_ABOVE
-                             else None)
+            self.b2_rows = stage_rows(params.B2[:self.n2], self.n2_pad, dev,
+                                      self.resident)
+        self.block_points = resolve_block_points(block_points, self.n_pad,
+                                                 self.resident)
         self.plan = None
         sync_device(dev)
         leave_block("stage params (host->device)")

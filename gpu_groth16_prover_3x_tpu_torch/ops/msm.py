@@ -1,7 +1,8 @@
 """Pippenger multi-scalar multiplication, and kernel 3: the bucket scan.
 
 The PyTorch counterpart of gpu_groth16_prover_3x_tpu/ops/msm.py
-(`_window_kernel_parts`, `msm_window_sums`, `msm_window_sums_streamed`).
+(`_window_kernel_parts`, `msm_window_sums`, `msm_window_sums_streamed`
+with host-resident rows uploaded on a copy stream, `msm_device`).
 Per block of windows:
 
   1. digits: c-bit windows of the 768-bit scalars (c in 4, 8, 16),
@@ -335,6 +336,66 @@ def combine_window_sums(cops: CurveOps, ws_a, ws_b):
     return ec_add(cops, ws_a, ws_b)
 
 
+class HostRowBlocks:
+    """Host-resident point rows uploaded to a card one block at a time on
+    a copy stream of their own (the JAX package's host-resident staging,
+    ops/msm.py `stage`).
+
+    issue(i) copies block i's slice of the host rows into one of two
+    pinned staging buffers of one block each (the whole array is never
+    pinned: at the sizes that need this path it is tens of GB), starts
+    its upload on the copy stream and returns the device block with the
+    event that the compute stream waits for before reading it.  The two
+    races, either of which would give a wrong proof and no error:
+
+      1. a staging buffer is rewritten only after the upload that reads
+         it has finished: the host waits on that upload's event;
+      2. a device block is allocated on the copy stream and read on the
+         compute stream: record_stream keeps the caching allocator from
+         handing its memory to another copy-stream tensor before the
+         compute stream's work on it is done.
+    """
+
+    def __init__(self, rows, B: int, device):
+        self.rows = torch.as_tensor(rows)
+        if self.rows.dtype != torch.int32 or self.rows.dim() != 2:
+            raise ValueError(f"host rows must be (n, k) int32, not "
+                             f"{self.rows.dtype} {tuple(self.rows.shape)}")
+        self.B, self.device = B, device
+        self.copy = torch.cuda.Stream(device)
+        self.staging = []
+        self.uploaded = []      # per staging buffer: its last upload
+
+    def issue(self, i: int):
+        k = i % 2
+        if k == len(self.staging):
+            self.staging.append(torch.empty((self.B, self.rows.shape[1]),
+                                            dtype=torch.int32,
+                                            pin_memory=True))
+            self.uploaded.append(None)
+        buf = self.staging[k]
+        if self.uploaded[k] is not None:
+            self.uploaded[k].synchronize()                    # race 1
+        part = self.rows[i * self.B:(i + 1) * self.B]
+        buf[:part.shape[0]].copy_(part)
+        buf[part.shape[0]:].zero_()         # y == 0 rows: exact no-ops
+        with torch.cuda.stream(self.copy):
+            blk = upload_block(buf, self.device)
+            done = torch.cuda.Event()
+            done.record()
+        blk.record_stream(torch.cuda.current_stream(self.device))  # race 2
+        self.uploaded[k] = done
+        return blk, done
+
+
+def upload_block(pinned: torch.Tensor, device) -> torch.Tensor:
+    """A new device copy of a pinned host block, issued on the current
+    stream (HostRowBlocks runs it on its copy stream)."""
+    out = torch.empty(pinned.shape, dtype=pinned.dtype, device=device)
+    out.copy_(pinned, non_blocking=True)
+    return out
+
+
 def msm_window_sums_streamed(cops: CurveOps, keys, rows,
                              chunk_s: int = DEFAULT_CHUNK, c: int = 16,
                              seg_ids=None, num_msms: int = 1,
@@ -343,28 +404,86 @@ def msm_window_sums_streamed(cops: CurveOps, keys, rows,
 
     The block count is ceil(n / block_points) and the blocks are balanced
     (equal sizes, a multiple of chunk_s); the tail is padded with y == 0
-    rows and zero keys, exact no-ops."""
+    rows and zero keys, exact no-ops.
+
+    keys and seg_ids lie on the device.  rows lie on the device too, or
+    on the host (a numpy array or a CPU tensor).  Host rows on a CUDA
+    device go up one block at a time (HostRowBlocks; with block_points
+    None, as one block): block i + 1's upload is issued once block i's
+    scans and reduction are queued, so the copy runs while the card
+    reduces block i, and it waits for nothing but the staging buffer it
+    reuses.  (The scan's carry chain reads `prop.any()` on the host once
+    per step; the copy is issued after those reads.)  There is no other
+    way for host rows onto a card: a failed copy or launch raises.  On
+    the CPU the same block loop slices the host rows in place."""
     n = rows.shape[0]
-    if block_points is None or block_points >= n:
+    dev = keys.device
+    host = not torch.is_tensor(rows) or rows.device.type == "cpu"
+    if host and dev.type == "cpu":
+        rows, host = torch.as_tensor(rows), False
+    elif not host and rows.device != dev:
+        raise ValueError(f"rows on {rows.device}, keys on {dev}")
+    if not host and (block_points is None or block_points >= n):
         return msm_window_sums(cops, keys, rows, chunk_s, c, seg_ids,
                                num_msms, signed)
-    nblk = -(-n // max(chunk_s, block_points))
+    nblk = 1 if block_points is None else -(-n // max(chunk_s,
+                                                       block_points))
     per = -(-n // nblk)
     B = -(-per // chunk_s) * chunk_s
+    nblk = -(-n // B)           # rounding B up can leave a block empty
     n_full = nblk * B
     if n_full > n:
-        rows = torch.cat([rows, rows.new_zeros((n_full - n, rows.shape[1]))])
         keys = torch.cat([keys, keys.new_zeros((L.NWORDS, n_full - n))], 1)
         if seg_ids is not None:
             seg_ids = torch.cat([seg_ids, seg_ids.new_zeros(n_full - n)])
+        if not host:
+            rows = torch.cat([rows, rows.new_zeros((n_full - n,
+                                                    rows.shape[1]))])
+    if host:
+        blocks = HostRowBlocks(rows, B, dev)
+        pending = blocks.issue(0)
     acc = None
-    for lo in range(0, n_full, B):
+    for i, lo in enumerate(range(0, n_full, B)):
+        if host:
+            blk, done = pending
+            pending = None
+            torch.cuda.current_stream(dev).wait_event(done)
+        else:
+            blk = rows[lo:lo + B]
         ws = msm_window_sums(
-            cops, keys[:, lo:lo + B].contiguous(), rows[lo:lo + B], chunk_s,
-            c, None if seg_ids is None else seg_ids[lo:lo + B], num_msms,
+            cops, keys[:, lo:lo + B].contiguous(), blk, chunk_s, c,
+            None if seg_ids is None else seg_ids[lo:lo + B], num_msms,
             signed)
+        del blk
+        if host and i + 1 < nblk:
+            pending = blocks.issue(i + 1)
         acc = ws if acc is None else combine_window_sums(cops, acc, ws)
     return acc
+
+
+def msm_device(cops: CurveOps, host_group, scalars, points,
+               chunk_s: int = DEFAULT_CHUNK, c: int = 16,
+               signed: bool = False, block_points: int = None,
+               device="cuda"):
+    """End-to-end MSM from host scalars (standard domain) and host affine
+    points ((x, y), coefficient tuples over an extension, the zero as
+    (0, 0)) to a host point: the points stay on the host as the file's
+    Montgomery word rows and go through msm_window_sums_streamed (in
+    blocks of block_points; on a card through its copy stream), then
+    finalize_msm.  The counterpart of the JAX package's
+    ops/msm.msm_device (a test and oracle helper)."""
+    n, p, r = len(scalars), cops.p, 1 << L.R_BITS
+    n_pad = max(chunk_s, -(-n // chunk_s) * chunk_s)
+    coords = [v * r % p for pt in points for v in (
+        (pt[0], pt[1]) if cops.deg == 1 else (*pt[0], *pt[1]))]
+    rows = np.zeros((n_pad, 2 * cops.deg * L.NWORDS), np.int32)
+    rows[:n] = L.ints_to_words(coords).T.reshape(n, -1)
+    keys = torch.from_numpy(L.ints_to_words(
+        list(scalars) + [0] * (n_pad - n))).to(device)
+    ws = msm_window_sums_streamed(cops, keys, rows, chunk_s, c, None, 1,
+                                  block_points, signed)
+    pts, = window_sums_to_host(cops, ws)
+    return finalize_msm(host_group, pts, c)
 
 
 # -- host finalization ----------------------------------------------------------------

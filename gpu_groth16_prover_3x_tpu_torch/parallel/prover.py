@@ -31,8 +31,9 @@ from ..curves.constants import CurveParams
 from ..host import ec as host_ec
 from ..models.gpu_prover import (PI1, STREAM_ABOVE, STREAM_BLOCK,
                                  DeviceInput, DeviceParams, from_monty_keys,
-                                 pad_rows, resolve_msm_cfg, round_up,
-                                 sync_device)
+                                 pad_rows, resolve_msm_cfg,
+                                 resolve_resident_bytes, round_up,
+                                 stage_rows, sync_device)
 from ..ops import limbs as L
 from ..ops.ec import get_curve_ops
 from ..ops.msm import finalize_windows
@@ -52,7 +53,8 @@ def _cols(rows: np.ndarray, count: int, device) -> torch.Tensor:
 
 def prove_sharded(curve: CurveParams, params: DeviceParams,
                   inputs: DeviceInput, group=None, device=None,
-                  block_points: int = None, verbose: bool = False):
+                  block_points: int = None, resident_bytes=None,
+                  verbose: bool = False):
     """One proof over the ranks of `group` (the default group, or one
     process); call it on every rank.  Returns affine (A, B2, C) host
     tuples on every rank.
@@ -62,8 +64,13 @@ def prove_sharded(curve: CurveParams, params: DeviceParams,
     on the witness slice, the same on every rank, so the ranks' window
     sums combine.  block_points: stream each MSM in global blocks of that
     many points (sharded_msm_window_sums); by default only past
-    STREAM_ABOVE rows a rank, in blocks of STREAM_BLOCK a rank.  Proof
-    bytes depend on neither."""
+    STREAM_ABOVE rows a rank, in blocks of STREAM_BLOCK a rank.
+    resident_bytes: as ProverSession's, on the rank's G1 and B2 rows;
+    past it the rank's G1 rows stay in host memory and go up a block at
+    a time (ops/msm.msm_window_sums_streamed), in global blocks of at
+    most STREAM_BLOCK a rank, while its B2 rows stay on the device (as in
+    the JAX package, parallel/prover.py:260-290).  Proof bytes depend on
+    none of these."""
     t0 = time.time()
     comm = Comm(group)
     D, rank = comm.size, comm.rank
@@ -93,20 +100,25 @@ def prove_sharded(curve: CurveParams, params: DeviceParams,
              params.L[l_lo - PI1:l_hi - PI1], params.H[hlo:h_hi]]
     n_tot = sum(len(a) for a in parts)
     n_pad = round_up(n_tot, chunk_s)
-    g1_rows = torch.from_numpy(pad_rows(np.concatenate(parts),
-                                         n_pad)).to(dev)
+    n2_pad = round_up(hi - lo, chunk_s)
+    row_bytes = 4 * (n_pad * params.A.shape[1] + n2_pad * params.B2.shape[1])
+    resident = row_bytes <= resolve_resident_bytes(resident_bytes, dev)
+    g1_rows = stage_rows(np.concatenate(parts), n_pad, dev, resident)
     sizes = [len(a) for a in parts]
     sizes[-1] += n_pad - n_tot                   # padding joins MSM 3
     seg = torch.from_numpy(np.repeat(np.arange(4), sizes)
                            .astype(np.int64)).to(dev)
-    n2_pad = round_up(hi - lo, chunk_s)
     b2_rows = torch.from_numpy(pad_rows(params.B2[lo:hi], n2_pad)).to(dev)
     if block_points is None and n_pad > STREAM_ABOVE:
         block_points = STREAM_BLOCK * D
+    if not resident:
+        block_points = min(block_points or STREAM_BLOCK * D,
+                           STREAM_BLOCK * D)
     sync_device(dev)
     leave_block("stage params (host->device)")
-    log(f"staged G1 rows {n_pad}, G2 rows {n2_pad} (witness [{lo}, {hi}), "
-        f"domain [{hlo}, {hlo + nl}))")
+    where = "on the device" if resident else "in host memory"
+    log(f"staged G1 rows {n_pad} ({where}), G2 rows {n2_pad} (witness "
+        f"[{lo}, {hi}), domain [{hlo}, {hlo + nl}))")
 
     enter_block("stage inputs (host->device)")
     ca, cb, cc = (_cols(a[hlo:hlo + nl], nl, dev)

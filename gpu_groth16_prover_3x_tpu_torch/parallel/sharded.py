@@ -111,7 +111,8 @@ def sharded_msm_window_sums(cops: CurveOps, keys_l, rows_l,
 
     keys_l (24, n_l) and rows_l (n_l, 2*deg*24): this rank's scalars and
     affine rows, n_l a multiple of chunk_s (ranks may hold different
-    counts); seg_l (n_l,) the MSM index per point, as in
+    counts); rows_l on the device or in host memory, uploaded a block at
+    a time (ops/msm.msm_window_sums_streamed); seg_l (n_l,) the MSM index per point, as in
     ops/msm.msm_window_sums.  Every rank returns the combined
     (3*deg, 24, nwin*num_msms) sums, or with combine=False the stacked
     per-rank sums (D, 3*deg, 24, nwin*num_msms).

@@ -451,3 +451,80 @@ def test_prove_sharded_world_one_nccl_fixture():
                                   backend="nccl", timeout=600)
     assert out["sha"] == want["MNT4753-output"]
     assert out["tally"]["msm_scan_step"] > 0
+
+
+# -- host-resident rows: uploads on a copy stream --------------------------
+
+@pytest.mark.parametrize("group", ["g1", "g2"], ids=["G1", "Fq2"])
+def test_host_rows_many_blocks_equal_device_rows(group, monkeypatch):
+    """2^13 MNT4753 points left in host memory, streamed in 16 blocks of
+    512 (each upload on the copy stream while the card works on the
+    block before), give the same window sums as the same rows on the
+    card in one pass; every block went through upload_block, none
+    through a copy on the compute stream."""
+    dev = card()
+    n, blk, c = 1 << 13, 512, 8
+    cops = get_curve_ops(MNT4753, group)
+    rows = multiples_rows(MNT4753, group, n)
+    keys = canon(np.random.default_rng(7), MNT4753.fr.p, n).to(dev)
+    streams = []
+    upload = M.upload_block
+
+    def watched(pinned, device):
+        assert pinned.is_pinned()
+        streams.append(torch.cuda.current_stream(device))
+        return upload(pinned, device)
+    monkeypatch.setattr(M, "upload_block", watched)
+    got = M.msm_window_sums_streamed(cops, keys, rows, 128, c, None, 1,
+                                     blk, True)
+    assert len(streams) == n // blk
+    assert all(s != torch.cuda.default_stream(dev) for s in streams)
+    one = M.msm_window_sums(cops, keys, torch.from_numpy(rows).to(dev), 128,
+                            c, signed=True)
+    from gpu_groth16_prover_3x_tpu_torch.host import ec as HE
+    hg = HE.g1_group(MNT4753) if group == "g1" else HE.g2_group(MNT4753)
+    a, = M.finalize_windows(cops, hg, got, c)
+    b, = M.finalize_windows(cops, hg, one, c)
+    assert not hg.is_zero(b) and hg.equal(a, b)
+
+
+def test_msm_device_host_rows_on_card_vs_host():
+    """msm_device on the card (host rows, blocks of 16) equals the host
+    MSM, infinity points and a zero scalar included."""
+    card()
+    from gpu_groth16_prover_3x_tpu_torch.host import ec as HE
+    from gpu_groth16_prover_3x_tpu_torch.host import msm as HM
+    rng = np.random.default_rng(8)
+    hg, gen = HE.g1_group(MNT4753), HE.g1_generator(MNT4753)
+    pts = [hg.mul(int(k), gen) for k in rng.integers(1, 1 << 40, size=50)]
+    pts[3] = pts[11] = hg.zero
+    sc = [int(v) for v in L.words_to_ints(canon(rng, MNT4753.fr.p, 50))]
+    sc[5] = 0
+    cops = get_curve_ops(MNT4753, "g1")
+    got = M.msm_device(cops, hg, sc, [hg.to_affine(q) for q in pts],
+                       chunk_s=8, c=8, signed=True, block_points=16)
+    assert hg.equal(got, HM.msm(hg, sc, pts))
+
+
+@pytest.mark.parametrize("curve_name", ["MNT4753", "MNT6753"])
+def test_host_resident_fixture_proof_on_card(curve_name, tmp_path):
+    """ProverSession(resident_bytes=0, block_points=48) on the card: rows
+    in host memory, the committed hash."""
+    card()
+    from gpu_groth16_prover_3x_tpu_torch.models import gpu_prover as GP
+    from gpu_groth16_prover_3x_tpu_torch.utils import serialization as ser
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                       "torch_port")
+    with open(os.path.join(fix, "SHA256SUMS")) as f:
+        want = dict(reversed(line.split()) for line in f if line.strip())
+    curve = CURVES[curve_name]
+    p = GP.load_params(os.path.join(fix, f"{curve_name}-parameters"), curve)
+    inp = GP.load_input(os.path.join(fix, f"{curve_name}-input"), curve,
+                        p.d, p.m)
+    sess = GP.ProverSession(curve, p, device="cuda", resident_bytes=0,
+                            block_points=48)
+    assert not sess.resident and isinstance(sess.g1_rows, np.ndarray)
+    out = tmp_path / "out"
+    ser.write_output(out, curve, *sess.prove(inp))
+    assert hashlib.sha256(out.read_bytes()).hexdigest() == \
+        want[f"{curve_name}-output"]

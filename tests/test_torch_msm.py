@@ -1,10 +1,12 @@
 """Port Pippenger MSM (ops/msm.py over the plain versions of the scan and
 group kernels) against the JAX package's exact host MSM (host/msm.py):
 signed and unsigned digits, c = 4 and 8, multi-MSM segments, streamed
-blocks, a uniform-digit run, zero scalars and infinity rows.
+blocks of device-resident and of host-resident rows, msm_device, a
+uniform-digit run, zero scalars and infinity rows.
 
 Window sums are compared only through their recombined point, never
-coordinate by coordinate.  The JAX msm_window_sums leg is slow-tier."""
+coordinate by coordinate.  The JAX msm_window_sums and msm_device legs
+are slow-tier."""
 
 import numpy as np
 import pytest
@@ -104,7 +106,8 @@ def test_msm_g2_vs_host(curve, signed):
 @pytest.mark.parametrize("block", [None, 12], ids=["one-pass", "streamed"])
 def test_multi_msm_segments(signed, block):
     """Two MSMs fused by segment ids; the streamed form cuts 32 points
-    into 3 blocks of 16, padded with y == 0 rows and zero keys."""
+    into 2 blocks of 16 (3 blocks of at most 12 points, each rounded up
+    to the chunk of 8, fit in 2)."""
     curve = MNT4753
     hg, sc, pts = fixtures(curve, "g1", 32, 21)
     cops = get_curve_ops(CURVES[curve.name], "g1")
@@ -189,3 +192,67 @@ def test_msm_vs_jax_window_sums(signed):
     got = port_msms(cops, hg, sc, rows_of(hg, pts, 1, curve.fq.p), 4,
                     signed)[0]
     assert hg.equal(got, want)
+
+
+@pytest.mark.parametrize("signed", [False, True])
+def test_streamed_host_rows_equal_one_pass_and_host(signed, monkeypatch):
+    """The port's twin of tests/test_device_msm.py::
+    test_msm_streamed_blocks: rows left in host memory (numpy),
+    block_points = 24 over 64 points in chunks of 8 (three blocks of 24
+    rows, the last with 8 padding rows, each scanned as a tensor of its
+    own), two fused MSMs; the recombined points equal the one pass over
+    the same rows as a tensor and the host MSM."""
+    curve = MNT4753
+    hg, sc, pts = fixtures(curve, "g1", 64, 41)
+    cops = get_curve_ops(CURVES[curve.name], "g1")
+    rows = rows_of(hg, pts, 1, curve.fq.p)
+    seg = torch.arange(64) % 2
+    scanned = []
+    scan = M.msm_scan
+
+    def counted(cops_, rows_, idx, keys, signs=None):
+        scanned.append(tuple(rows_.shape))
+        return scan(cops_, rows_, idx, keys, signs)
+    monkeypatch.setattr(M, "msm_scan", counted)
+    host = port_msms(cops, hg, sc, rows.numpy(), 4, signed, seg, 2,
+                     block=24)
+    assert len(scanned) % 3 == 0 and set(scanned) == {(24, 48)}
+    one = port_msms(cops, hg, sc, rows, 4, signed, seg, 2)
+    for i in range(2):
+        want = oracle(hg, sc[i::2], pts[i::2])
+        assert hg.equal(host[i], want)
+        assert hg.equal(one[i], want)
+
+
+@pytest.mark.parametrize("group,block", [("g1", None), ("g1", 12),
+                                         ("g2", 12)])
+def test_msm_device_vs_host(group, block):
+    """msm_device: host scalars and affine points (the zero as (0, 0))
+    to a host point, in one pass or in host-row blocks of 12."""
+    curve = MNT4753
+    hg, sc, pts = fixtures(curve, group, 30, 51)
+    cops = get_curve_ops(CURVES[curve.name], group)
+    aff = [hg.to_affine(q) for q in pts]
+    got = M.msm_device(cops, hg, sc, aff, chunk_s=8, c=4, signed=True,
+                       block_points=block, device="cpu")
+    assert hg.equal(got, oracle(hg, sc, pts))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("signed", [False, True])
+def test_msm_device_vs_jax_msm_device(signed):
+    """msm_device of the port and of the JAX package (XLA:CPU) on the
+    same scalars and affine points give the same group element, which is
+    the host MSM's."""
+    from gpu_groth16_prover_3x_tpu.ops.ec import get_curve_ops as jget
+    from gpu_groth16_prover_3x_tpu.ops.msm import msm_device
+    curve = MNT4753
+    hg, sc, pts = fixtures(curve, "g1", 32, 53)
+    aff = [hg.to_affine(q) for q in pts]
+    want = msm_device(jget(curve, "g1"), hg, sc, aff, curve.fq.p,
+                      chunk_s=8, c=4, signed=signed)
+    cops = get_curve_ops(CURVES[curve.name], "g1")
+    got = M.msm_device(cops, hg, sc, aff, chunk_s=8, c=4, signed=signed,
+                       block_points=16, device="cpu")
+    assert hg.equal(got, want)
+    assert hg.equal(got, oracle(hg, sc, pts))

@@ -124,6 +124,33 @@ def test_compute_with_tables_matches_committed_sha(
     assert sha(out) == committed_sha()[f"{curve_name}-output"]
 
 
+def test_compute_with_tables_host_resident_rows(table_files, tmp_path,
+                                                monkeypatch):
+    """The table path with $GROTH16_MSM_RESIDENT_BYTES = 0: the A|H rows
+    stay in host memory and the A|H pass runs in blocks of 48 points,
+    the tables stay as loaded; the proof has the committed hash."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("GROTH16_PREPROCESSED_PATH", table_files["MNT4753"])
+    monkeypatch.setenv("GROTH16_MSM_RESIDENT_BYTES", "0")
+    monkeypatch.setenv("GROTH16_MSM_BLOCK_POINTS", "48")
+    sessions = []
+    init = GP.ProverSession.__init__
+
+    def keep(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        sessions.append(self)
+    monkeypatch.setattr(GP.ProverSession, "__init__", keep)
+    out = tmp_path / "out"
+    assert cli.main(["gpu", "MNT4753", "compute",
+                     fixture("MNT4753", "parameters"),
+                     fixture("MNT4753", "input"), str(out),
+                     "--device", "cpu"]) == 0
+    sess, = sessions
+    assert sess.tables is not None and not sess.resident
+    assert isinstance(sess.g1_rows, np.ndarray) and sess.block_points == 48
+    assert sha(out) == committed_sha()["MNT4753-output"]
+
+
 @pytest.mark.slow
 def test_preprocess_matches_jax_device_builder(table_files, tmp_path):
     """The JAX package's device builder (XLA:CPU) on the same fixture."""

@@ -7,6 +7,7 @@ import hashlib
 import os
 import tempfile
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -15,7 +16,7 @@ from gpu_groth16_prover_3x_tpu_torch.models import gpu_prover as GP
 from gpu_groth16_prover_3x_tpu_torch.ops import msm
 from gpu_groth16_prover_3x_tpu_torch.ops.ec import get_curve_ops
 from gpu_groth16_prover_3x_tpu_torch.ops.msm import combine_window_sums
-from gpu_groth16_prover_3x_tpu_torch.parallel import multihost
+from gpu_groth16_prover_3x_tpu_torch.parallel import multihost, prover
 from gpu_groth16_prover_3x_tpu_torch.parallel.prover import prove_sharded
 from gpu_groth16_prover_3x_tpu_torch.parallel.sharded import (
     ShardedNttPlan, sharded_msm_window_sums, sharded_ntt)
@@ -72,11 +73,13 @@ def msm_rank(rank, curve_name, group, keys, rows, chunk_s, c, signed,
 
 
 def prove_rank(rank, curve_name, device, params=None, inputs=None,
-               block_points=None):
+               block_points=None, resident_bytes=None):
     """prove_sharded of DeviceParams / DeviceInput (the committed fixture
-    by default), streamed in global blocks of block_points when given;
-    returns the affine proof, the proof file's sha256, this rank's op
-    tally and its number of bucket-scan calls."""
+    by default), streamed in global blocks of block_points when given,
+    with resident_bytes; returns the affine proof, the proof file's
+    sha256, this rank's op tally, its number of bucket-scan calls and
+    where the rows of each of its two MSMs lay ("host" for numpy in host
+    memory, else "device")."""
     curve = CURVES[curve_name]
     if params is None:
         params = GP.load_params(os.path.join(
@@ -90,18 +93,28 @@ def prove_rank(rank, curve_name, device, params=None, inputs=None,
         scans.append(1)
         return scan(*args)
     msm.msm_scan = counted
+    where = []
+    sharded_msm = prover.sharded_msm_window_sums
+
+    def located(cops, keys, rows, *args, **kwargs):
+        where.append("host" if isinstance(rows, np.ndarray) else "device")
+        return sharded_msm(cops, keys, rows, *args, **kwargs)
+    prover.sharded_msm_window_sums = located
     try:
         with opcount.collect() as tally:
             proof = prove_sharded(curve, params, inputs, device=device,
-                                  block_points=block_points)
+                                  block_points=block_points,
+                                  resident_bytes=resident_bytes)
     finally:
         msm.msm_scan = scan
+        prover.sharded_msm_window_sums = sharded_msm
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "proof")
         ser.write_output(out, curve, *proof)
         with open(out, "rb") as f:
             sha = hashlib.sha256(f.read()).hexdigest()
-    return dict(proof=proof, sha=sha, tally=tally, scans=len(scans))
+    return dict(proof=proof, sha=sha, tally=tally, scans=len(scans),
+                rows=where)
 
 
 def failing_rank(rank):
