@@ -92,9 +92,19 @@ Phases (any failure exits non-zero before the result line):
      the plain scan.  11c: prove_sharded at world 2 on gloo with each
      rank's G1 rows in host memory, MNT6753 2^15 in global blocks of
      2^16: every rank's proof equals phase 4's.
+ 12. the entry points of __graft_entry_torch__.py.  12a: entry()'s
+     fn (the G1 window sums of 128 MNT4753 points, c = 8) on the card
+     must launch msm_scan, ec_add and ec_dbl, equal fn on CPU copies of
+     its args (the plain route) word for word, and finalise to the host
+     MSM of its scalars; timed with CUDA events.  12b:
+     dryrun_multichip(1) (nccl) and dryrun_multichip(2) (two gloo ranks
+     on the one card): every rank's proof equals the unmasked host
+     oracle's at 2^6, and every rank launched mont_mul, ec_add, ec_dbl
+     and msm_scan; each call is timed.
 Every phase sets the launch counts to 0 before the run it reads and fails
 if a kernel of that run's path never launched.
-The last lines are the kernel JSON, the card line and the result line.
+The last lines are the entry points' JSON (phase 12), the kernel JSON, the
+card line and the result line.
 """
 
 import contextlib
@@ -125,6 +135,7 @@ from gpu_groth16_prover_3x_tpu_torch.curves.constants import (  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.host import ec as HE  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.host import field as HF  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.host import groth16 as HG  # noqa: E402
+from gpu_groth16_prover_3x_tpu_torch.host import msm as HM  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.models import gpu_prover as GP  # noqa
 from gpu_groth16_prover_3x_tpu_torch.models import \
     preprocess_device as PD  # noqa: E402
@@ -153,6 +164,8 @@ from gpu_groth16_prover_3x_tpu_torch.utils import opcount  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.utils import profiling  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.utils import \
     serialization as SER  # noqa: E402
+
+import __graft_entry_torch__ as GE  # noqa: E402
 
 SEED = 20261016
 SETUP_SEED = 7
@@ -1879,6 +1892,76 @@ def host_sharded_phase(run6) -> list:
     return ranks
 
 
+# -- phase 12: the entry points of __graft_entry_torch__.py --------------
+
+ENTRY_KERNELS = ("ec_add", "ec_dbl", "msm_scan")
+ENTRY_C = 8                # entry()'s window width
+
+
+def entry_phase() -> dict:
+    """12a: entry()'s fn on the card, its launches, word for word against
+    fn on CPU copies of the args (the plain route), the finalized sum
+    against the host MSM of the example's 128 scalars, and its time."""
+    fn, (keys, rows) = GE.entry()
+    if keys.device.type != "cuda" or rows.device.type != "cuda":
+        raise AssertionError("12a: entry()'s args are not on the card")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    ws = fn(keys, rows)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    launches = counts()
+    require_launched("12a entry fn", launches, ENTRY_KERNELS)
+    t1 = time.time()
+    plain = fn(keys.cpu(), rows.cpu())
+    plain_s = time.time() - t1
+    err = require_equal("12a entry fn", ws.cpu(), plain)
+    curve = MNT4753
+    hg = HE.g1_group(curve)
+    gen = HE.g1_generator(curve)
+    base = [hg.mul(3 + 5 * i, gen) for i in range(8)]
+    scalars = L.words_to_ints(keys.cpu().numpy())
+    want = HM.msm(hg, scalars, [base[i % 8] for i in range(len(scalars))])
+    got = M.finalize_windows(get_curve_ops(curve, "g1"), hg, ws, ENTRY_C)[0]
+    if not hg.equal(got, want):
+        raise AssertionError("12a: entry fn's finalized sum != host MSM")
+    ms = cuda_ms(lambda: fn(keys, rows), 10)
+    log(f"12a: entry() fn on the card {tuple(ws.shape)}: first call "
+        f"{first_s:.3f} s, {ms:.3f} ms a call (CUDA events, 10 calls); "
+        f"launches {launches}; equal to the plain route on the CPU "
+        f"({plain_s:.1f} s) word for word; finalized sum == host MSM")
+    return dict(launches=launches, ms=ms, first_s=first_s, plain_s=plain_s,
+                max_abs_err=err)
+
+
+def dryrun_phase() -> dict:
+    """12b: dryrun_multichip(1) (nccl, world 1) and dryrun_multichip(2)
+    (two gloo ranks on the one card); each checks every rank's proof
+    against the unmasked host oracle and raises otherwise."""
+    torch.cuda.empty_cache()
+    out = {}
+    for n, backend in ((1, "nccl"), (2, "gloo")):
+        t0 = time.time()
+        r = GE.dryrun_multichip(n)
+        wall = time.time() - t0
+        if r["backend"] != backend or len(r["ranks"]) != n:
+            raise AssertionError(f"12b dryrun_multichip({n}): backend "
+                                 f"{r['backend']}, {len(r['ranks'])} ranks")
+        for rank in r["ranks"]:
+            require_launched(f"12b dryrun_multichip({n}) rank "
+                             f"{rank['rank']}", rank["launches"],
+                             PATH_KERNELS)
+        log(f"12b: dryrun_multichip({n}) ({backend}, 2^{r['log2_d']}): "
+            f"{wall:.1f} s (setup {r['setup_s']:.1f}, ranks "
+            f"{r['prove_s']:.1f}, oracle {r['oracle_s']:.1f}); "
+            f"prove_sharded a rank "
+            f"{[round(k['seconds'], 3) for k in r['ranks']]} s; launches "
+            f"{[k['launches'] for k in r['ranks']]}")
+        out[n] = dict(r, wall_s=wall)
+    return out
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1985,6 +2068,9 @@ def main() -> int:
             host_par = host_sharded_phase(run6)
             log(f"11c host-resident sharded proof done at "
                 f"{time.time() - t0:.1f} s")
+            entry12 = entry_phase()
+            dry12 = dryrun_phase()
+            log(f"12 entry points done at {time.time() - t0:.1f} s")
         finally:
             os.chdir(cwd)
 
@@ -2008,6 +2094,10 @@ def main() -> int:
         entry["launches_host_resident_2p20"] = host["host"]["launches"][name]
         entry["launches_host_resident_sharded_mnt6753_2p15"] = [
             r["launches"][name] for r in host_par]
+        entry["launches_entry_fn"] = entry12["launches"][name]
+        for n in (1, 2):
+            entry[f"launches_dryrun_world{n}_2p6"] = [
+                r["launches"][name] for r in dry12[n]["ranks"]]
         kernels.append(entry)
     kernels[3]["host_resident_checks"] = host["host"]["checks"]
     kernels[0]["launches_table_build_2p20"] = tab4["build"]["mont_mul"]
@@ -2073,6 +2163,14 @@ def main() -> int:
                           for e in kernels)]
     if missing:
         raise AssertionError(f"never launched in setup: {missing}")
+    print(json.dumps({"entry_points": {
+        "entry_fn": {k: entry12[k] for k in ("ms", "first_s", "plain_s",
+                                             "max_abs_err", "launches")},
+        "dryrun": {f"world{n}": {k: r[k] for k in (
+            "backend", "log2_d", "wall_s", "setup_s", "prove_s",
+            "oracle_s")} | {"rank_s": [
+                k["seconds"] for k in r["ranks"]]}
+            for n, r in dry12.items()}}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if torch.cuda.device_count() != 1:

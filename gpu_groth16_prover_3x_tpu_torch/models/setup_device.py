@@ -52,7 +52,7 @@ from ..ops.ec import get_curve_ops
 from ..ops.inverse import to_affine_rows
 from ..ops.msm import identity_words
 from ..utils.profiling import enter_block, leave_block
-from .gpu_prover import DeviceParams
+from .gpu_prover import DeviceInput, DeviceParams
 from .preprocess_device import affine_operand
 
 EXP_WINDOW_C = 8                     # bits per window
@@ -82,6 +82,28 @@ def scalar_words(curve: CurveParams, scalars: Sequence[int]) -> np.ndarray:
     """Scalars reduced mod r -> (24, n) int32 standard-domain words."""
     r = curve.fr.p
     return L.ints_to_words([int(s) % r for s in scalars])
+
+
+def params_from_host(curve: CurveParams, hp) -> DeviceParams:
+    """Host-int Groth16Params (affine points, the zero as (0, 0)) -> word
+    rows, the bytes load_params reads from the file write_params writes
+    (the counterpart of the JAX package's tpu_prover.params_from_host)."""
+    deg = curve.ext_degree
+    return DeviceParams(hp.d, hp.m, *(
+        affine_rows(curve, k, pts) for k, pts in
+        ((1, hp.A), (1, hp.B1), (deg, hp.B2), (1, hp.L), (1, hp.H))))
+
+
+def input_from_host(curve: CurveParams, hi) -> DeviceInput:
+    """Host-int Groth16Input (standard-domain scalars) -> Montgomery word
+    rows (count, 24), as load_input reads them from write_input's file."""
+    r = curve.fr.p
+
+    def rows(vals):
+        return np.ascontiguousarray(L.ints_to_words(
+            [v * R % r for v in vals]).T)
+    return DeviceInput(rows(hi.w), rows(hi.ca), rows(hi.cb), rows(hi.cc),
+                       hi.r)
 
 
 def _window_table(curve: CurveParams, group: str, base_pt, device

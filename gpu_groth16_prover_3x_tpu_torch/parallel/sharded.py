@@ -133,6 +133,16 @@ def sharded_msm_window_sums(cops: CurveOps, keys_l, rows_l,
 
 # -- sharded NTT (four steps, all_to_all transposes) -----------------------------
 
+def ntt_split(n: int):
+    """The four-step factors (n1, n2) of an n-point NTT: n1 =
+    2^floor(log2 n / 2), n2 = n / n1.  Any number of ranks that divides
+    both runs it (a power of two up to n1)."""
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"NTT size {n} is not a power of two")
+    half = (n.bit_length() - 1) // 2
+    return 1 << half, n >> half
+
+
 class ShardedNttPlan:
     """One rank's tables for a distributed n = n1 * n2 NTT over `ndev`
     ranks (n1 = 2^floor(log2 n / 2), n2 = n / n1, both divisible by
@@ -149,11 +159,7 @@ class ShardedNttPlan:
 
     def __init__(self, fp: FieldParams, n: int, ndev: int, rank: int,
                  device):
-        if n < 1 or n & (n - 1):
-            raise ValueError(f"NTT size {n} is not a power of two")
-        log_n = n.bit_length() - 1
-        self.n1 = 1 << (log_n // 2)
-        self.n2 = n >> (log_n // 2)
+        self.n1, self.n2 = ntt_split(n)
         if self.n1 % ndev or self.n2 % ndev:
             raise ValueError(f"n1={self.n1}, n2={self.n2} must be divisible "
                              f"by the number of ranks ({ndev})")

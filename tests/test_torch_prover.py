@@ -159,6 +159,8 @@ def test_port_imports_nothing_of_jax():
         "import gpu_groth16_prover_3x_tpu_torch.parallel.multihost\n"
         "import gpu_groth16_prover_3x_tpu_torch.parallel.sharded\n"
         "import gpu_groth16_prover_3x_tpu_torch.parallel.prover\n"
+        "import gpu_groth16_prover_3x_tpu_torch.parallel.dryrun\n"
+        "import __graft_entry_torch__\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib',"
         " 'gpu_groth16_prover_3x_tpu') or m.startswith("
         "('jax.', 'jaxlib.', 'gpu_groth16_prover_3x_tpu.'))]\n"

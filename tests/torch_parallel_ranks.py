@@ -1,10 +1,13 @@
 """Rank functions of the multi-device tests (tests/test_torch_parallel.py
 on the CPU, the card tests of tests/test_torch_gpu.py), run in spawned
 processes by parallel/multihost.launch_local.  They import torch and the
-port only, and return numpy arrays and plain values."""
+port only, and return numpy arrays and plain values.  Run as a script, the
+module is one rank of the README "Several cards" recipe on the CPU
+(tests/test_torch_multihost.py)."""
 
 import hashlib
 import os
+import sys
 import tempfile
 
 import numpy as np
@@ -122,3 +125,21 @@ def failing_rank(rank):
     if rank == 1:
         raise ValueError("rank 1 fails on purpose")
     dist.barrier()
+
+
+if __name__ == "__main__":
+    # The README "Several cards" script with DEVICE = "cpu", one process a
+    # rank under torchrun's variables (tests/test_torch_multihost.py):
+    #   torch_parallel_ranks.py <CURVE> <params> <input> <output>
+    DEVICE = "cpu"
+
+    curve_name, params_path, input_path, output_path = sys.argv[1:5]
+    multihost.initialize(device=DEVICE)      # nccl on cards, gloo on the CPU
+    curve = CURVES[curve_name]
+    params = GP.load_params(params_path, curve)
+    inputs = GP.load_input(input_path, curve, params.d, params.m)
+    proof = prove_sharded(curve, params, inputs, multihost.data_group(),
+                          DEVICE)
+    if dist.get_rank() == 0:
+        ser.write_output(output_path, curve, *proof)
+    dist.destroy_process_group()
