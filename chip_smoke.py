@@ -101,6 +101,11 @@ Phases (any failure exits non-zero before the result line):
      on the one card): every rank's proof equals the unmasked host
      oracle's at 2^6, and every rank launched mont_mul, ec_add, ec_dbl
      and msm_scan; each call is timed.
+ 13. bench_torch.py as a subprocess at small sizes (msm 2^16, g2 2^12,
+     ntt 2^16, 2 timed runs; the proof legs off: phases 4 and 9c prove
+     the same files and keys): exit 0, a value, correct: true on every
+     leg that ran, and the legs' own launch counts show msm_scan, ec_add
+     and ec_dbl in the MSM legs and mont_mul in the NTT leg.
 Every phase sets the launch counts to 0 before the run it reads and fails
 if a kernel of that run's path never launched.
 The last lines are the entry points' JSON (phase 12), the kernel JSON, the
@@ -162,8 +167,13 @@ from gpu_groth16_prover_3x_tpu_torch.utils import cli  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.utils import native  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.utils import opcount  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.utils import profiling  # noqa: E402
+from gpu_groth16_prover_3x_tpu_torch.utils.profiling import \
+    card_line  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.utils import \
     serialization as SER  # noqa: E402
+from gpu_groth16_prover_3x_tpu_torch.utils.synthetic import (  # noqa: E402
+    NBASE, affine_words, expected_proof, rand_canon, read_proof,
+    write_input, write_synthetic)
 
 import __graft_entry_torch__ as GE  # noqa: E402
 
@@ -284,15 +294,6 @@ def cuda_once(fn):
 
 
 # -- random canonical inputs -----------------------------------------------------
-
-def rand_canon(rng, p: int, shape) -> np.ndarray:
-    """(24, *shape) int32 words of values below p (the top word is drawn
-    below p's top word)."""
-    w = rng.integers(0, 1 << 32, size=(L.NWORDS,) + tuple(shape),
-                     dtype=np.uint64)
-    w[-1] %= p >> (32 * (L.NWORDS - 1))
-    return w.astype(np.uint32).view(np.int32)
-
 
 def rand_points(rng, cops, n: int, ncoord: int) -> np.ndarray:
     """(ncoord*deg, 24, n) random canonical coordinates; for projective
@@ -462,78 +463,6 @@ def fixture_gate(workdir: str) -> None:
 
 # -- phase 4: the main path at full size ----------------------------------------------
 
-NBASE = 64
-
-
-def _affine_words(hg, pt, deg: int, p: int) -> np.ndarray:
-    x, y = hg.to_affine(pt)
-    cs = [x, y] if deg == 1 else list(x) + list(y)
-    return np.concatenate([L.int_to_words(c * R % p) for c in cs])
-
-
-def write_synthetic(curve, log2: int, workdir: str, rng):
-    """Params whose rows tile known multiples k_j * G (k_j = 3 + 7j), and
-    random inputs; returns (paths, known logs, scalars)."""
-    d1 = 1 << log2
-    d, m = d1 - 1, d1
-    p = curve.fq.p
-    hg1, hg2 = HE.g1_group(curve), HE.g2_group(curve)
-    g1, g2 = HE.g1_generator(curve), HE.g2_generator(curve)
-    ks = [3 + 7 * j for j in range(NBASE)]
-    base1 = np.stack([_affine_words(hg1, hg1.mul(k, g1), 1, p) for k in ks])
-    base2 = np.stack([_affine_words(hg2, hg2.mul(k, g2), curve.ext_degree,
-                                    p) for k in ks])
-
-    def tile(base, count, shift):
-        return np.roll(base, -shift, 0)[np.arange(count) % NBASE]
-
-    logs = {"A": (m + 1, 0), "B1": (m + 1, 1), "L": (m - 1, 2),
-            "H": (d, 3), "B2": (m + 1, 0)}
-    params = os.path.join(workdir, f"{curve.name}-parameters")
-    with open(params, "wb") as f:
-        f.write(np.array([d, m], "<u8").tobytes())
-        for name in ("A", "B1", "B2", "L", "H"):
-            count, shift = logs[name]
-            base = base2 if name == "B2" else base1
-            f.write(tile(base, count, shift).tobytes())
-    inp = os.path.join(workdir, f"{curve.name}-input")
-    return params, inp, ks, logs, write_input(curve, log2, inp, rng)
-
-
-def write_input(curve, log2: int, path: str, rng):
-    """A random input file for a 2^log2 domain; returns its values."""
-    d1 = 1 << log2
-    fr = curve.fr.p
-    w, ca, cb, cc = (rand_canon(rng, fr, (n,)) for n in (d1 + 1, d1, d1, d1))
-    r_in = int(rng.integers(1, 1 << 62))
-    with open(path, "wb") as f:
-        for a in (w, ca, cb, cc):
-            f.write(np.ascontiguousarray(a.T).tobytes())
-        f.write((r_in * R % fr).to_bytes(96, "little"))
-    return w, ca, cb, cc, r_in
-
-
-def known_log(ks, count: int, shift: int, scalars) -> dict:
-    """sum_i scalars[i] * k_{(i + shift) mod NBASE}, grouped by class."""
-    acc = [0] * NBASE
-    for i, s in enumerate(scalars[:count]):
-        acc[(i + shift) % NBASE] += s
-    return sum(a * k for a, k in zip(acc, ks))
-
-
-def read_proof(path: str, curve):
-    p, deg = curve.fq.p, curve.ext_degree
-    rinv = pow(R, -1, p)
-    with open(path, "rb") as f:
-        raw = f.read()
-    vals = [int.from_bytes(raw[i:i + 96], "little") * rinv % p
-            for i in range(0, len(raw), 96)]
-    a = (vals[0], vals[1])
-    b = (tuple(vals[2:2 + deg]), tuple(vals[2 + deg:2 + 2 * deg]))
-    c = tuple(vals[2 + 2 * deg:4 + 2 * deg])
-    return a, b, c
-
-
 class KernelTimer:
     """CUDA events around calls of kernel wrappers, summed per label and
     group configuration.  `targets` maps a label to (module, attribute):
@@ -683,7 +612,7 @@ def streamed_msm(rng, n=1 << 16, blk=1 << 14, c=16,
     curve = MNT4753
     cops = get_curve_ops(curve, "g1")
     hg, g1 = HE.g1_group(curve), HE.g1_generator(curve)
-    base = np.stack([_affine_words(hg, hg.mul(3 + 7 * j, g1), 1, curve.fq.p)
+    base = np.stack([affine_words(hg, hg.mul(3 + 7 * j, g1), 1, curve.fq.p)
                      for j in range(NBASE)])
     rows = torch.from_numpy(base[np.arange(n) % NBASE]).to(DEV)
     rows[::97, 24:] = 0                                  # infinity rows
@@ -709,30 +638,6 @@ def streamed_msm(rng, n=1 << 16, blk=1 << 14, c=16,
     log(f"streamed MSM: {n} points in {n // blk} blocks of {blk}, signed, "
         f"c = {c}, 2 fused MSMs: {scans_s} scan launches, equal to the "
         f"unstreamed pass ({scans_u} scan launches)")
-
-
-def expected_proof(curve, log2: int, ks, logs, values):
-    """(A, B, C) of an input from the known logs, with H from the kernels'
-    pipeline on the card; returns (affine points, H words)."""
-    w, ca, cb, cc, r_in = values
-    fr = curve.fr
-    dev_in = [torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
-              for a in (ca, cb, cc)]
-    h_k = compute_h(NttPlan(fr, 1 << log2, DEV), *dev_in)
-    h_std = L.words_to_ints(h_k[1].cpu().numpy())
-    rinv = pow(R, -1, fr.p)
-    wstd = [v * rinv % fr.p for v in L.words_to_ints(w)]
-    sA = known_log(ks, *logs["A"], wstd)
-    sB1 = known_log(ks, *logs["B1"], wstd)
-    sB2 = known_log(ks, *logs["B2"], wstd)
-    sL = known_log(ks, logs["L"][0], logs["L"][1], wstd[2:])
-    sH = known_log(ks, *logs["H"], h_std)
-    hg1, hg2 = HE.g1_group(curve), HE.g2_group(curve)
-    g1, g2 = HE.g1_generator(curve), HE.g2_generator(curve)
-    want = (hg1.to_affine(hg1.mul(sA % fr.p, g1)),
-            hg2.to_affine(hg2.mul(sB2 % fr.p, g2)),
-            hg1.to_affine(hg1.mul((sH + sL + r_in * sB1) % fr.p, g1)))
-    return tuple(tuple(x) for x in want), (h_k, dev_in)
 
 
 def require_proof(what: str, got, want) -> None:
@@ -773,7 +678,8 @@ def full_proof(curve, log2: int, workdir: str, rng, plain_h: bool = True):
     require_launched(f"{curve.name} proof", launches, PATH_KERNELS)
 
     # H: kernels against the plain pipeline on the card, same inputs
-    want, (h_k, dev_in) = expected_proof(curve, log2, ks, logs, values)
+    want, (h_k, dev_in) = expected_proof(curve, log2, ks, logs, values,
+                                         DEV)
     if plain_h:
         h_p = compute_h(NttPlan(curve.fr, 1 << log2, DEV,
                                 mul=MM.mont_mul_plain), *dev_in)
@@ -813,7 +719,7 @@ def normalisation_check(rng, curve, n: int = 300) -> None:
                 want.append(np.zeros(2 * deg * L.NWORDS, np.int32))
             else:
                 pt = hg.mul(int(rng.integers(1, 1 << 40)), gen)
-                want.append(_affine_words(hg, pt, deg, p))
+                want.append(affine_words(hg, pt, deg, p))
                 x, y = hg.to_affine(pt)
                 x, y = (x, y) if deg > 1 else ((x,), (y,))
                 Z = tuple(int(v) % p for v in rng.integers(1, 1 << 62,
@@ -1041,7 +947,7 @@ def serve_phase(rng, run, workdir: str) -> dict:
     fresh = os.path.join(workdir, f"{curve.name}-input-2")
     values = write_input(curve, run["log2"], fresh, rng)
     want2, _ = expected_proof(curve, run["log2"], run["ks"], run["logs"],
-                              values)
+                              values, DEV)
     outs = [os.path.join(workdir, f"serve-output-{i}") for i in (0, 1)]
     reset_counts()
     buf = io.StringIO()
@@ -1238,22 +1144,6 @@ def setup_oracle_phase(rng, workdir: str, results: dict, log2: int = 6,
     return launches
 
 
-def trapdoor_result(curve, td_path: str, input_path: str):
-    """The SetupResult verify_with_trapdoor needs, from the trapdoor JSON
-    and the input file."""
-    with open(td_path) as f:
-        td = json.load(f)
-    inputs = SER.read_input(input_path, curve, td["d"], td["m"])
-    if inputs.w != td["w"] or inputs.r != td["r"]:
-        raise AssertionError("the input file disagrees with the trapdoor")
-    return HG.SetupResult(
-        d=td["d"], m=td["m"], A=None, B1=None, B2=None, L=None, H=None,
-        w=inputs.w, ca=inputs.ca, cb=inputs.cb, cc=inputs.cc, r=inputs.r,
-        trapdoor=HG.Trapdoor(td["t"], td["alpha"], td["beta"], td["delta"],
-                             td["g1_dlog"], td["at"], td["bt"], td["ct"],
-                             td["zt"]))
-
-
 SETUP_LAPS = ("setup host part (R1CS, QAP, scalar vectors)",
               "batch_exp A (device)", "batch_exp B1 (device)",
               "batch_exp B2 (device)", "batch_exp L (device)",
@@ -1309,7 +1199,8 @@ def setup_full_phase(workdir: str, results: dict,
             raise AssertionError(f"{name} proof failed")
         prove_s = time.time() - t1
         t1 = time.time()
-        ok = HG.verify_with_trapdoor(curve, trapdoor_result(curve, td, inp),
+        ok = HG.verify_with_trapdoor(curve,
+                                     SU.trapdoor_result(curve, td, inp),
                                      *read_proof(proof, curve))
         verify_s = time.time() - t1
         if not ok:
@@ -1543,7 +1434,7 @@ def streamed_inputs(n: int):
     and scalars, the same in every rank."""
     curve = MNT4753
     hg, g1 = HE.g1_group(curve), HE.g1_generator(curve)
-    base = np.stack([_affine_words(hg, hg.mul(3 + 7 * j, g1), 1, curve.fq.p)
+    base = np.stack([affine_words(hg, hg.mul(3 + 7 * j, g1), 1, curve.fq.p)
                      for j in range(NBASE)])
     rows = base[np.arange(n) % NBASE]
     rows[::97, 24:] = 0
@@ -1962,11 +1853,52 @@ def dryrun_phase() -> dict:
     return out
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+# -- phase 13: the bench ---------------------------------------------------
+
+BENCH13_ENV = {"BENCH_LOG2N": "16", "BENCH_G2_LOG2N": "12",
+               "BENCH_NTT_LOG2N": "16", "BENCH_REPS": "2",
+               "BENCH_SKIP_PROOF20": "1", "BENCH_PROOF_LOG2D": "0"}
+BENCH13_LAUNCHED = {"msm": ("msm_scan", "ec_add", "ec_dbl"),
+                    "g2": ("msm_scan", "ec_add", "ec_dbl"),
+                    "ntt": ("mont_mul",)}
+
+
+def bench_phase() -> dict:
+    """13: bench_torch.py at BENCH13_ENV's sizes, its leg groups in
+    subprocesses of its own: exit 0, a non-null value, every leg that ran
+    correct, and each leg's kernels launched in its timed calls."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH13_ENV)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "bench_torch.py")], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=600)
+    wall = time.time() - t0
+    lines = res.stdout.strip().splitlines()
+    if res.returncode != 0 or not lines:
+        log(res.stderr[-6000:])
+        raise AssertionError(f"bench_torch.py exited {res.returncode}")
+    last = json.loads(lines[-1])
+    log(f"bench_torch: {lines[-1]}")
+    detail = last["detail"]
+    if last["value"] is None:
+        raise AssertionError("bench_torch.py printed no value")
+    for leg in ("msm", "proof20", "g2", "ntt", "proof"):
+        r = detail[leg]
+        if "skipped" in r:
+            if leg in BENCH13_LAUNCHED:
+                raise AssertionError(f"bench leg {leg} was skipped")
+            continue
+        if r.get("correct") is not True:
+            raise AssertionError(f"bench leg {leg} is not correct: {r}")
+        require_launched(f"bench leg {leg}", r["launches"],
+                         BENCH13_LAUNCHED[leg])
+    log(f"13: bench_torch.py {wall:.1f} s, exit 0, value "
+        f"{last['value']:.1f} points/s at 2^16; msm, g2, ntt correct; "
+        f"launches " + ", ".join(f"{leg} {detail[leg]['launches']}"
+                                 for leg in BENCH13_LAUNCHED))
+    return dict(wall_s=wall, line=last)
 
 
 def check_ptxas() -> None:
@@ -2071,6 +2003,8 @@ def main() -> int:
             entry12 = entry_phase()
             dry12 = dryrun_phase()
             log(f"12 entry points done at {time.time() - t0:.1f} s")
+            bench_phase()
+            log(f"13 bench done at {time.time() - t0:.1f} s")
         finally:
             os.chdir(cwd)
 

@@ -57,6 +57,22 @@ def generate_parameters(curve: CurveParams, log2_d: int, params_path: str,
     leave_block("write files")
 
 
+
+def trapdoor_result(curve: CurveParams, td_path: str, input_path: str):
+    """The SetupResult host/groth16.verify_with_trapdoor needs, from the
+    trapdoor JSON that generate_parameters writes and the input file."""
+    with open(td_path) as f:
+        td = json.load(f)
+    inputs = ser.read_input(input_path, curve, td["d"], td["m"])
+    if inputs.w != td["w"] or inputs.r != td["r"]:
+        raise ValueError("the input file disagrees with the trapdoor")
+    return groth16.SetupResult(
+        d=td["d"], m=td["m"], A=None, B1=None, B2=None, L=None, H=None,
+        w=inputs.w, ca=inputs.ca, cb=inputs.cb, cc=inputs.cc, r=inputs.r,
+        trapdoor=groth16.Trapdoor(td["t"], td["alpha"], td["beta"],
+                                  td["delta"], td["g1_dlog"], td["at"],
+                                  td["bt"], td["ct"], td["zt"]))
+
 def generate_all(fast: bool = False, outdir: str = ".",
                  log2_d_4753: Optional[int] = None,
                  log2_d_6753: Optional[int] = None,

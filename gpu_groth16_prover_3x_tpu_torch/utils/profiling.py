@@ -9,6 +9,7 @@ the printing (on by default).  The counterpart of the JAX package's
 utils/profiling.py.
 """
 
+import subprocess
 import sys
 import time
 from contextlib import contextmanager
@@ -77,6 +78,16 @@ def log_device_memory(label: str = "") -> dict:
               f"peak {st['peak_bytes'] / 2**30:.2f} GiB",
               file=sys.stderr, flush=True)
     return st
+
+
+def card_line() -> str:
+    """The first card's name and power limit, as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them: a
+    card may be set below its maximum power and then runs slower."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 class PhaseTimer:

@@ -160,7 +160,9 @@ def test_port_imports_nothing_of_jax():
         "import gpu_groth16_prover_3x_tpu_torch.parallel.sharded\n"
         "import gpu_groth16_prover_3x_tpu_torch.parallel.prover\n"
         "import gpu_groth16_prover_3x_tpu_torch.parallel.dryrun\n"
+        "import gpu_groth16_prover_3x_tpu_torch.utils.synthetic\n"
         "import __graft_entry_torch__\n"
+        "import bench_torch\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib',"
         " 'gpu_groth16_prover_3x_tpu') or m.startswith("
         "('jax.', 'jaxlib.', 'gpu_groth16_prover_3x_tpu.'))]\n"
