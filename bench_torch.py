@@ -321,7 +321,7 @@ def bench_proof20(*, log2d: int = 20, reps: int = 3, seed: int = 20,
         values = SY.write_input(curve, log2d, inp, rng)
         files_s = time.perf_counter() - t0
         want = SY.expected_proof(curve, log2d, SY.KS, SY.query_logs(log2d),
-                                 values, device)[0]
+                                 values, device)
         out = _prove_timed(curve, params, inp, reps, device,
                            lambda path: SY.read_proof(path, curve) == want)
         out.update(metric=f"mnt4753_proof_seconds_2^{log2d}", log2d=log2d,

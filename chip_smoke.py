@@ -16,7 +16,8 @@ Phases (any failure exits non-zero before the result line):
      reference's default) and one MNT6753 proof at 2^15 (its G2 is over
      Fq3; 2^15 is the largest power-of-two domain of its Fr), from
      synthetic parameters with known discrete logs, through prove_files; A, B and C are checked against the known logs, and the
-     H polynomial of the kernels against the plain H pipeline on the card.
+     proof's H polynomial against the plain H pipeline on the card and
+     against the pipeline with its plain add/sub in blocks of 2^14 lanes.
      The launch counts are set to 0 just before each proof and read just
      after it: every kernel of the path must have launched in each.  CUDA
      events around the MSM's calls of ec_add, ec_dbl and msm_scan sum each
@@ -78,11 +79,12 @@ Phases (any failure exits non-zero before the result line):
      2^20 over the 2 ranks equals ops/ntt on one rank, forward and
      inverse, word for word.  A rank that raises or outlives its
      timeout fails the phase;
- 11. streamed and host-resident query rows.  11a: an MNT4753 proof at
-     d + 1 = 2^21 through prove_files with no forcing streams its 2^23 G1
-     rows in 4 blocks of 2^21 and its B2 rows in 2 (checked by the scan
-     launches per configuration) and equals its known logs; the plain H
-     pipeline is left to phase 4's 2^20 proof.  11b: phase 4's MNT4753
+ 11. streamed and host-resident query rows at their own sizes.  11a: an
+     MNT4753 proof at d + 1 = 2^24 through prove_files with no forcing
+     keeps its 19.3 GB of rows on the card, streams its 2^26 G1 rows in
+     32 blocks of 2^21 and its B2 rows in 9 (checked by the scan launches
+     per configuration) and equals its known logs; the plain H pipeline
+     is left to phase 4's 2^20 proof.  11b: phase 4's MNT4753
      2^20 files in two sessions with blocks of 2^19 points, rows resident
      and rows in host memory (resident_bytes = 0): both proofs have phase
      4's sha256, the host session's peak device memory is at least half
@@ -91,7 +93,15 @@ Phases (any failure exits non-zero before the result line):
      scan of each MSM in a second host-resident proof is held against
      the plain scan.  11c: prove_sharded at world 2 on gloo with each
      rank's G1 rows in host memory, MNT6753 2^15 in global blocks of
-     2^16: every rank's proof equals phase 4's.
+     2^16: every rank's proof equals phase 4's.  11d: an MNT4753 proof
+     at d + 1 = 2^25 through a ProverSession on in-memory synthetic keys
+     with no forcing: its 38.65 GB of rows pass 3/8 of the card and stay
+     in host memory, each of its 81 blocks goes up from pinned memory on
+     the copy stream (timed), A, B and C equal the known logs, and the
+     first scan of each MSM is held against the plain scan.  It needs
+     about 80 GiB of host memory and fails, saying so, on a host that
+     has less.  11a and 11d print their laps, peak device memory and
+     peak host RSS;
  12. the entry points of __graft_entry_torch__.py.  12a: entry()'s
      fn (the G1 window sums of 128 MNT4753 points, c = 8) on the card
      must launch msm_scan, ec_add and ec_dbl, equal fn on CPU copies of
@@ -122,6 +132,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -151,6 +162,7 @@ from gpu_groth16_prover_3x_tpu_torch.ops import build  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.ops import group_kernels as GK  # noqa
 from gpu_groth16_prover_3x_tpu_torch.ops import limbs as L  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.ops import mont_mul as MM  # noqa: E402
+from gpu_groth16_prover_3x_tpu_torch.ops import ntt as NT  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.ops import msm as M  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.ops import straus as S  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.ops.inverse import \
@@ -172,7 +184,8 @@ from gpu_groth16_prover_3x_tpu_torch.utils.profiling import \
 from gpu_groth16_prover_3x_tpu_torch.utils import \
     serialization as SER  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.utils.synthetic import (  # noqa: E402
-    NBASE, affine_words, expected_proof, rand_canon, read_proof,
+    KS, NBASE, affine_words, expected_proof, input_arrays, input_values,
+    known_proof, params_arrays, query_logs, rand_canon, read_proof,
     write_input, write_synthetic)
 
 import __graft_entry_torch__ as GE  # noqa: E402
@@ -513,15 +526,22 @@ class KernelTimer:
 class UploadTimer:
     """CUDA events around each call of ops/msm.upload_block, recorded on
     the stream it runs on (the copy stream of the host-resident rows):
-    totals() gives (uploads, summed device ms, bytes)."""
+    totals() gives (uploads, summed device ms, bytes); `stray` counts the
+    uploads whose source was not pinned or that ran on the default
+    stream."""
 
     def __enter__(self):
         self.saved = M.upload_block
         self.events = []
+        self.stray = 0
 
         def timed(pinned, device):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
+            if not pinned.is_pinned() or (torch.cuda.current_stream(device)
+                                          == torch.cuda.default_stream(
+                                              device)):
+                self.stray += 1
             e0.record()
             out = self.saved(pinned, device)
             e1.record()
@@ -647,22 +667,78 @@ def require_proof(what: str, got, want) -> None:
                                  f"known logs")
 
 
+class HostPeak:
+    """The process's peak resident set while the block runs, sampled from
+    /proc/self/status every 20 ms by a thread (getrusage's ru_maxrss is
+    the peak of the whole run, not of one phase)."""
+
+    def __enter__(self):
+        self.peak, self.done = rss_bytes(), threading.Event()
+
+        def sample():
+            while not self.done.wait(0.02):
+                self.peak = max(self.peak, rss_bytes())
+        self.thread = threading.Thread(target=sample, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.done.set()
+        self.thread.join()
+        self.peak = max(self.peak, rss_bytes())
+
+
+def rss_bytes() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+class KeepH:
+    """Keeps a host copy of the H pipeline's outputs (h_mont, h_std) each
+    time models/gpu_prover calls compute_h: the known logs of C are taken
+    with the proof's own H, and phase 4 holds it against the plain
+    pipeline.  The copy is made inside the H lap (about 0.3 s at 2^24)."""
+
+    def __enter__(self):
+        self.saved, self.outs = GP.compute_h, []
+
+        def keep(*args):
+            out = self.saved(*args)
+            self.outs.append(tuple(t.cpu() for t in out))
+            return out
+        GP.compute_h = keep
+        return self
+
+    def __exit__(self, *exc):
+        GP.compute_h = self.saved
+
+
+H_BLOCK_CHECK = 1 << 14     # column block of phase 4's second H pipeline
+
+
 def full_proof(curve, log2: int, workdir: str, rng, plain_h: bool = True):
     """One proof through prove_files on synthetic files of a 2^log2
-    domain, checked against the known logs; with plain_h, the kernels' H
-    pipeline also against the plain one on the card."""
+    domain, checked against the known logs with the proof's own H; with
+    plain_h, that H also against the plain pipeline on the card on the
+    same inputs, and against the pipeline with its add/sub in blocks of
+    H_BLOCK_CHECK lanes (the widths of 2^24 and 2^25 in small)."""
     t0 = time.time()
     params, inp, ks, logs, values = write_synthetic(curve, log2, workdir,
                                                     rng)
-    log(f"{curve.name} 2^{log2}: synthetic files written in "
-        f"{time.time() - t0:.1f} s")
+    files_s = time.time() - t0
+    log(f"{curve.name} 2^{log2}: synthetic files written in {files_s:.1f} s")
     out = os.path.join(workdir, f"{curve.name}-output")
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t1 = time.time()
     with KernelTimer(MSM_TARGETS) as timer, \
-            Capture(GP, "finalize_windows") as fin:
+            Capture(GP, "finalize_windows") as fin, KeepH() as keep_h, \
+            HostPeak() as host:
         GP.prove_files(curve, params, inp, out, device=DEV)
     wall = time.time() - t1
     launches = counts()
@@ -670,32 +746,46 @@ def full_proof(curve, log2: int, workdir: str, rng, plain_h: bool = True):
     peak = torch.cuda.max_memory_allocated()
     laps = profiling.last_laps()
     log(f"{curve.name} 2^{log2}: prove_files {wall:.2f} s, peak device "
-        f"memory {peak / 2**30:.2f} GiB")
+        f"memory {peak / 2**30:.2f} GiB, peak host RSS "
+        f"{host.peak / 2**30:.2f} GiB")
     for name, dt in laps.items():
         log(f"  phase {name}: {dt:.3f} s")
     log(f"  launches: {launches}")
     log_timer("in the proof", in_proof)
     require_launched(f"{curve.name} proof", launches, PATH_KERNELS)
 
-    # H: kernels against the plain pipeline on the card, same inputs
-    want, (h_k, dev_in) = expected_proof(curve, log2, ks, logs, values,
-                                         DEV)
+    h_k, = keep_h.outs
+    want = known_proof(curve, ks, logs, values[0], h_k[1].numpy(), values[4])
     if plain_h:
+        dev_in = [torch.from_numpy(a).to(DEV) for a in values[1:4]]
         h_p = compute_h(NttPlan(curve.fr, 1 << log2, DEV,
                                 mul=MM.mont_mul_plain), *dev_in)
-        require_equal(f"{curve.name} H pipeline", h_k, h_p)
-        h_note = "H equals the plain pipeline"
+        require_equal(f"{curve.name} H pipeline", h_k,
+                      tuple(t.cpu() for t in h_p))
+        # the plain add/sub in many column blocks, as at 2^24 and 2^25
+        block, NT.COL_BLOCK = NT.COL_BLOCK, H_BLOCK_CHECK
+        try:
+            h_b = compute_h(NttPlan(curve.fr, 1 << log2, DEV), *dev_in)
+        finally:
+            NT.COL_BLOCK = block
+        require_equal(f"{curve.name} H pipeline in blocks of "
+                      f"{H_BLOCK_CHECK} lanes", h_k,
+                      tuple(t.cpu() for t in h_b))
+        del h_p, h_b, dev_in
+        h_note = ("the proof's H equals the plain pipeline and the one in "
+                  f"blocks of {H_BLOCK_CHECK} lanes")
     else:
         h_note = ("the plain H pipeline is left to the 2^20 proof of "
-                  "phase 4 (about 12 s of plain mont_mul at this size)")
-    del h_k, dev_in
+                  "phase 4 (minutes of plain mont_mul at this size)")
+    del h_k, keep_h
     require_proof(f"{curve.name} 2^{log2}", read_proof(out, curve), want)
     log(f"{curve.name} 2^{log2}: A, B, C match the known logs (m = "
         f"{1 << log2}); {h_note}")
-    return dict(wall_s=wall, peak_bytes=peak, phases=laps,
-                launches=launches, in_proof=in_proof, params=params,
-                input=inp, output=out, sha=sha256(out), want=want, ks=ks,
-                logs=logs, log2=log2, window_sums=fin.calls)
+    return dict(wall_s=wall, peak_bytes=peak, host_peak_bytes=host.peak,
+                files_s=files_s, phases=laps, launches=launches,
+                in_proof=in_proof, params=params, input=inp, output=out,
+                sha=sha256(out), want=want, ks=ks, logs=logs, log2=log2,
+                window_sums=fin.calls)
 
 
 # -- phases 6 to 8: the table path and serving --------------------------------
@@ -946,8 +1036,8 @@ def serve_phase(rng, run, workdir: str) -> dict:
     curve = MNT4753
     fresh = os.path.join(workdir, f"{curve.name}-input-2")
     values = write_input(curve, run["log2"], fresh, rng)
-    want2, _ = expected_proof(curve, run["log2"], run["ks"], run["logs"],
-                              values, DEV)
+    want2 = expected_proof(curve, run["log2"], run["ks"], run["logs"],
+                           values, DEV)
     outs = [os.path.join(workdir, f"serve-output-{i}") for i in (0, 1)]
     reset_counts()
     buf = io.StringIO()
@@ -1614,9 +1704,10 @@ def sharded_phase(run4, run6) -> dict:
 
 # -- phase 11: streamed and host-resident query rows ------------------------
 
-STREAM11_LOG2 = 21           # 11a: MNT4753 d + 1 = 2^21 streams by default
+STREAM11_LOG2 = 24           # 11a: MNT4753 d + 1 = 2^24, rows resident
 HOST11_BLOCK = 1 << 19       # 11b: points per block in both sessions
 SHARDED11_BLOCK = 1 << 16    # 11c: global block of the MNT6753 proof
+HOST11D_LOG2 = 25            # 11d: MNT4753 d + 1 = 2^25, rows on the host
 MSM_LAP = "MSMs (device Pippenger)"
 
 
@@ -1629,36 +1720,66 @@ def scans_per_pass(points: int, chunk: int, c: int) -> int:
     return nwin // wb
 
 
-def streamed_default_phase(workdir: str, rng) -> dict:
-    """11a: an MNT4753 proof at d + 1 = 2^21 through prove_files with no
-    forcing: 2^23 G1 rows, past STREAM_ABOVE, go in 4 blocks of
-    STREAM_BLOCK and the 2^21 + 1 B2 rows in 2, their rows resident."""
-    curve, log2 = MNT4753, STREAM11_LOG2
+def default_blocks(log2: int) -> dict:
+    """Per group configuration of an unforced MNT4753 proof at d + 1 =
+    2^log2: (blocks, points a block, scan launches), the blocks of
+    STREAM_BLOCK points that ops/msm.block_grid cuts."""
     d1 = 1 << log2
     n_g1 = 2 * (d1 + 1) + (d1 - 1) + (d1 - 1)
     chunk, c, _ = GP.resolve_msm_cfg(d1, torch.device(DEV))
-    n_pad, n2_pad = GP.round_up(n_g1, chunk), GP.round_up(d1 + 1, chunk)
-    blocks = {}
-    for cfg, n in ((0, n_pad), (1, n2_pad)):
-        nblk = -(-n // GP.STREAM_BLOCK)
-        per = GP.round_up(-(-n // nblk), chunk)
-        blocks[cfg] = (nblk, per, nblk * scans_per_pass(per, chunk, c))
-    if n_pad <= GP.STREAM_ABOVE or blocks[0][0] != 4:
-        raise AssertionError(f"11a: {n_pad} G1 rows would not stream in 4 "
-                             f"blocks")
+    out = {}
+    for cfg, n in ((0, n_g1), (1, d1 + 1)):
+        nblk, per = M.block_grid(GP.round_up(n, chunk), chunk,
+                                 GP.STREAM_BLOCK)
+        out[cfg] = (nblk, per, nblk * scans_per_pass(per, chunk, c))
+    return out
+
+
+def check_blocks(what: str, in_proof: dict, blocks: dict) -> None:
+    for cfg, (nblk, per, want) in blocks.items():
+        got = in_proof.get(("msm_scan", cfg), (0, 0.0))[0]
+        if got != want:
+            raise AssertionError(f"{what}: {got} scan launches in cfg {cfg}, "
+                                 f"want {nblk} blocks x {want // nblk}")
+        log(f"{what}: cfg {cfg}: {nblk} blocks of {per} points, {got} scan "
+            f"launches ({want // nblk} a block)")
+
+
+def streamed_default_phase(workdir: str, rng) -> dict:
+    """11a: an MNT4753 proof at d + 1 = 2^24 through prove_files with no
+    forcing: its 19.3 GB of rows stay on the card (under 3/8 of it), the
+    2^26 G1 rows go in 32 blocks of STREAM_BLOCK and the 2^24 + 1 B2 rows
+    in 9, A, B and C equal the known logs."""
+    curve, log2 = MNT4753, STREAM11_LOG2
+    blocks = default_blocks(log2)
+    if blocks[0][0] != 32:
+        raise AssertionError(f"11a: the G1 rows would go in {blocks[0][0]} "
+                             f"blocks, not 32")
+    sessions = []
+    init = GP.ProverSession.__init__
+
+    def keep(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        sessions.append(self.resident)
     # a directory of its own: phase 4's files of the same names are read
     # again in 11b
     sub = os.path.join(workdir, f"2p{log2}")
     os.makedirs(sub)
-    run = full_proof(curve, log2, sub, rng, plain_h=False)
-    for cfg, (nblk, per, want) in blocks.items():
-        got = run["in_proof"].get(("msm_scan", cfg), (0, 0.0))[0]
-        if got != want:
-            raise AssertionError(f"11a: {got} scan launches in cfg {cfg}, "
-                                 f"want {nblk} blocks x "
-                                 f"{want // nblk}")
-        log(f"11a: cfg {cfg}: {nblk} blocks of {per} points, {got} scan "
-            f"launches ({want // nblk} a block)")
+    GP.ProverSession.__init__ = keep
+    try:
+        run = full_proof(curve, log2, sub, rng, plain_h=False)
+    finally:
+        GP.ProverSession.__init__ = init
+    if sessions != [True]:
+        raise AssertionError(f"11a: the session's rows are not resident "
+                             f"({sessions})")
+    check_blocks("11a", run["in_proof"], blocks)
+    total = torch.cuda.get_device_properties(0).total_memory
+    spare = total - run["peak_bytes"]
+    log(f"11a: rows resident (3/8 of the card's {total / 2**30:.2f} GiB "
+        f"allows {total * 3 // 8 / 2**30:.2f}); peak device memory "
+        f"{run['peak_bytes'] / 2**30:.2f} GiB, {spare / 2**30:.2f} GiB to "
+        f"spare; synthetic files {run['files_s']:.1f} s")
     shutil.rmtree(sub)
     del run["window_sums"]
     return run
@@ -1781,6 +1902,119 @@ def host_sharded_phase(run6) -> list:
     log("11c: every rank's host-resident proof equals phase 4's (MNT6753 "
         "2^15)")
     return ranks
+
+
+def host_memory() -> dict:
+    """MemTotal and MemAvailable of /proc/meminfo, in bytes."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(val.split()[0]) * 1024
+    return out
+
+
+def host_rows_phase(rng) -> dict:
+    """11d: an MNT4753 proof at d + 1 = 2^25 through a ProverSession on
+    utils/synthetic.params_arrays, unforced: its 38.65 GB of rows pass 3/8
+    of the card, so they stay in host memory and every block goes up from
+    a pinned staging buffer on the copy stream (UploadTimer); the params
+    are dropped once the session holds its copy, then the input is made.
+    A, B and C equal the known logs (with the proof's own H); the first
+    bucket scan of each MSM (captured in the proof, so its operands stay
+    on the card until the end) is held against the plain scan."""
+    curve, log2 = MNT4753, HOST11D_LOG2
+    d1 = 1 << log2
+    blocks = default_blocks(log2)
+    row_bytes = 4 * sum(per * nblk * w for (nblk, per, _), w in zip(
+        blocks.values(), (48, 96)))
+    mem = host_memory()
+    # the params and the session's one padded copy of them, with about
+    # 8 GiB for the process and the input made after the params go
+    need = 2 * row_bytes + (8 << 30)
+    log(f"11d: host memory {mem['MemTotal'] / 2**30:.1f} GiB, "
+        f"{mem['MemAvailable'] / 2**30:.1f} GiB available; the proof needs "
+        f"about {need / 2**30:.1f} GiB (twice {row_bytes / 1e9:.2f} GB of "
+        f"rows)")
+    if mem["MemAvailable"] < need:
+        raise AssertionError(
+            f"11d: MNT4753 2^{log2} with host rows needs about "
+            f"{need / 2**30:.1f} GiB of host memory; this machine has "
+            f"{mem['MemAvailable'] / 2**30:.1f} GiB available of "
+            f"{mem['MemTotal'] / 2**30:.1f} GiB")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    laps = {}
+    with HostPeak() as host, UploadTimer() as uploads, KeepH() as keep_h, \
+            KernelTimer(MSM_TARGETS) as timer, \
+            Capture(M, "msm_scan", index=0) as cap:
+        t0 = time.time()
+        params = params_arrays(curve, log2)
+        laps["params_arrays"] = time.time() - t0
+        t0 = time.time()
+        sess = GP.ProverSession(curve, params, DEV)
+        laps["session"] = time.time() - t0
+        staged_rss = rss_bytes()
+        del params
+        t0 = time.time()
+        values = input_values(curve, log2, rng)
+        laps["input_values"] = time.time() - t0
+        t0 = time.time()
+        proof = sess.prove(input_arrays(values))
+        torch.cuda.synchronize()
+        laps["prove"] = time.time() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    phases = profiling.last_laps()
+    in_proof = timer.totals()
+    n_up, up_ms, up_bytes = uploads.totals()
+    log(f"11d MNT4753 2^{log2}: resident={sess.resident}, session "
+        f"{laps['session']:.2f} s + proof {laps['prove']:.2f} s (params "
+        f"made in {laps['params_arrays']:.1f} s, input in "
+        f"{laps['input_values']:.1f} s), peak device memory "
+        f"{peak / 2**30:.2f} GiB, peak host RSS {host.peak / 2**30:.2f} GiB "
+        f"({staged_rss / 2**30:.2f} GiB with the params and the session's "
+        f"rows)")
+    for name, dt in phases.items():
+        log(f"  phase {name}: {dt:.3f} s")
+    log(f"  uploads on the copy stream: {n_up}, {up_ms:.1f} ms of device "
+        f"time for {up_bytes / 1e9:.3f} GB"
+        + (f" ({up_bytes / up_ms / 1e6:.1f} GB/s)" if up_ms else "")
+        + f", beside the MSM lap of {phases[MSM_LAP]:.3f} s")
+    log(f"  launches: {launches}")
+    log_timer("in the proof", in_proof)
+    if sess.resident:
+        raise AssertionError("11d: the session kept its rows on the card")
+    require_launched("11d", launches, PATH_KERNELS)
+    n_blocks = sum(nblk for nblk, _, _ in blocks.values())
+    if n_up != n_blocks or uploads.stray:
+        raise AssertionError(f"11d: {n_up} uploads for {n_blocks} blocks, "
+                             f"{uploads.stray} not from pinned memory on "
+                             f"the copy stream")
+    check_blocks("11d", in_proof, blocks)
+    h_k, = keep_h.outs
+    want = known_proof(curve, KS, query_logs(log2), values[0],
+                       h_k[1].numpy(), values[4])
+    del h_k, keep_h, values, sess
+    require_proof(f"MNT4753 2^{log2} host rows", proof, want)
+    log(f"11d: A, B, C match the known logs (m = {d1})")
+    held = sum(t.numel() * t.element_size() for args in cap.calls
+               for t in args[1:] if torch.is_tensor(t))
+    checks = [captured_scan_check(args, "11d host rows")
+              for args in cap.calls]
+    for k in checks:
+        log(f"11d: msm_scan {k['config']} on the first host block at "
+            f"{k['shape']}: kernel {k['ms']:.3f} ms, plain "
+            f"{k['plain_ms']:.1f} ms, equal (its operands, "
+            f"{held / 2**30:.2f} GiB for both MSMs, count in the peak)")
+    del cap
+    torch.cuda.empty_cache()
+    return dict(launches=launches, peak_bytes=peak, host_peak_bytes=host.peak,
+                laps=laps, phases=phases, uploads=(n_up, up_ms, up_bytes),
+                checks=checks)
 
 
 # -- phase 12: the entry points of __graft_entry_torch__.py --------------
@@ -1992,14 +2226,16 @@ def main() -> int:
             log(f"batch_exp at 2^20 done at {time.time() - t0:.1f} s")
             par = sharded_phase(run4, run6)
             log(f"multi-device prover done at {time.time() - t0:.1f} s")
-            run21 = streamed_default_phase(workdir, rng)
-            log(f"11a default-streamed 2^21 proof done at "
+            run24 = streamed_default_phase(workdir, rng)
+            log(f"11a resident-row 2^24 proof done at "
                 f"{time.time() - t0:.1f} s")
             host = host_resident_phase(run4)
             log(f"11b host-resident rows done at {time.time() - t0:.1f} s")
             host_par = host_sharded_phase(run6)
             log(f"11c host-resident sharded proof done at "
                 f"{time.time() - t0:.1f} s")
+            host25 = host_rows_phase(rng)
+            log(f"11d host-row 2^25 proof done at {time.time() - t0:.1f} s")
             entry12 = entry_phase()
             dry12 = dryrun_phase()
             log(f"12 entry points done at {time.time() - t0:.1f} s")
@@ -2007,6 +2243,7 @@ def main() -> int:
             log(f"13 bench done at {time.time() - t0:.1f} s")
         finally:
             os.chdir(cwd)
+    log(f"smoke wall time: {time.time() - t0:.1f} s, the build included")
 
     # The first four entries: the kernels of the path on the MNT4753 2^20
     # proof (G1 shapes; mont_mul over its Fr), launches from that proof.
@@ -2022,7 +2259,8 @@ def main() -> int:
         for key, tag in (("mnt4753", "2p20"), ("mnt6753", "mnt6753_2p15")):
             entry[f"launches_sharded_world2_{tag}"] = [
                 r[key]["launches"][name] for r in par["world2"]]
-        entry["launches_streamed_2p21"] = run21["launches"][name]
+        entry["launches_resident_2p24"] = run24["launches"][name]
+        entry["launches_host_2p25"] = host25["launches"][name]
         entry["launches_resident_blocks_2p20"] = \
             host["resident"]["launches"][name]
         entry["launches_host_resident_2p20"] = host["host"]["launches"][name]
@@ -2034,6 +2272,7 @@ def main() -> int:
                 r["launches"][name] for r in dry12[n]["ranks"]]
         kernels.append(entry)
     kernels[3]["host_resident_checks"] = host["host"]["checks"]
+    kernels[3]["host_2p25_checks"] = host25["checks"]
     kernels[0]["launches_table_build_2p20"] = tab4["build"]["mont_mul"]
     # The other group configurations of the group add and the scan, each
     # with its own launches in the proof that runs it.

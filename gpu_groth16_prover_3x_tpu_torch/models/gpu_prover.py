@@ -42,7 +42,7 @@ from ..host import ec as host_ec
 from ..ops import limbs as L
 from ..ops.ec import get_curve_ops
 from ..ops.mont_mul import mont_mul
-from ..ops.msm import (DEFAULT_CHUNK, finalize_windows,
+from ..ops.msm import (DEFAULT_CHUNK, finalize_windows, grid_points,
                        msm_window_sums_streamed)
 from ..ops.ntt import NttPlan, compute_h, const_words
 from ..ops.straus import STRAUS_C, straus_window_sums
@@ -198,6 +198,10 @@ def resolve_resident_bytes(resident_bytes, device: torch.device) -> float:
     else 3/8 of the card's memory (the JAX package's 6 of 16 GiB carried
     over; on an 80 GB H100 about 31.9 GB, so MNT4753 rows stay resident up
     to d + 1 = 2^24, 19.3 GB, and stay on the host from 2^25, 38.7 GB).
+    Measured on an H100 80GB HBM3 at 700 W (prove_at_scale.py): the 2^24
+    proof with its rows resident peaks at 42.6 GiB, and a 2^25 proof with
+    none peaks at 44.6 GiB in its H pipeline, so even rows just under 3/8
+    (29.7 GiB) beside a 2^25 H pipeline would stay under 75 GiB.
     On the CPU every row is resident: the device is host memory."""
     if resident_bytes is None:
         env = os.environ.get("GROTH16_MSM_RESIDENT_BYTES")
@@ -227,12 +231,44 @@ def resolve_block_points(block_points, n_pad: int, resident: bool):
     return block_points or None
 
 
-def stage_rows(rows: np.ndarray, n_pad: int, device, resident: bool):
-    """Padded query rows on the device, or kept on the host as contiguous
-    numpy (ops/msm.msm_window_sums_streamed uploads them a block at a
-    time)."""
-    padded = pad_rows(rows, n_pad)
-    return torch.from_numpy(padded).to(device) if resident else padded
+def stage_rows(parts, n_pad: int, device, resident: bool):
+    """The query rows `parts` side by side, padded with y == 0 rows to
+    n_pad, in one array filled part by part: on the device (each part
+    copied up from its host array), or kept on the host as contiguous
+    numpy (ops/msm.msm_window_sums_streamed uploads it a block at a
+    time).  No other copy of the rows is made."""
+    width = parts[0].shape[1]
+    host = None if resident else np.zeros((n_pad, width), dtype=np.int32)
+    out = (torch.zeros((n_pad, width), dtype=torch.int32, device=device)
+           if resident else torch.from_numpy(host))
+    lo = 0
+    for part in parts:
+        # torch's copy runs on every core: 2^25 rows in seconds
+        out[lo:lo + len(part)].copy_(torch.from_numpy(
+            np.ascontiguousarray(part)))
+        lo += len(part)
+    return out if resident else host
+
+
+def stage_cols(rows: np.ndarray, device) -> torch.Tensor:
+    """(count, 24) host rows -> (24, count) words on the device: rows that
+    are a transposed view go up as they lie, others go up row-major and
+    are transposed there (numpy takes seconds to transpose 2^24 rows)."""
+    if rows.T.flags.c_contiguous:
+        return torch.from_numpy(rows.T).to(device)
+    return torch.from_numpy(np.ascontiguousarray(rows)).to(device).t() \
+        .contiguous()
+
+
+def pad_keys(parts, n_pad: int) -> torch.Tensor:
+    """(24, n_pad) scalar words: the (24, k) parts side by side, then zero
+    keys (no-ops against the padding rows)."""
+    out = parts[0].new_zeros((L.NWORDS, n_pad))
+    lo = 0
+    for part in parts:
+        out[:, lo:lo + part.shape[1]] = part
+        lo += part.shape[1]
+    return out
 
 
 class ProverSession:
@@ -283,28 +319,29 @@ class ProverSession:
             self.tables = tuple(
                 torch.as_tensor(t).to(dev).reshape(-1, t.shape[-1])
                 for t in tables)
-        g1_rows = np.concatenate(parts)
-        self.n_tot = g1_rows.shape[0]
-        self.n_pad = round_up(self.n_tot, q)
-        row_bytes = self.n_pad * g1_rows.shape[1] * 4
+        self.n_tot = sum(len(a) for a in parts)
+        n_pad = round_up(self.n_tot, q)
+        row_bytes = n_pad * params.A.shape[1] * 4
         if tables is None:
             self.n2 = m + 1
-            self.n2_pad = round_up(self.n2, q)
-            row_bytes += self.n2_pad * params.B2.shape[1] * 4
+            n2_pad = round_up(self.n2, q)
+            row_bytes += n2_pad * params.B2.shape[1] * 4
         self.resident = row_bytes <= resolve_resident_bytes(resident_bytes,
                                                             dev)
-        self.g1_rows = stage_rows(g1_rows, self.n_pad, dev, self.resident)
-        del g1_rows
+        self.block_points = resolve_block_points(block_points, n_pad,
+                                                 self.resident)
+        # rows and keys are padded once, to the streamed MSM's block grid
+        self.n_pad = grid_points(n_pad, q, self.block_points)
+        self.g1_rows = stage_rows(parts, self.n_pad, dev, self.resident)
         # MSM index per G1 row (the padding joins the last MSM)
         sizes = [len(a) for a in parts]
         sizes[-1] += self.n_pad - self.n_tot
         self.seg = torch.from_numpy(np.repeat(
             np.arange(len(parts)), sizes).astype(np.int64)).to(dev)
         if tables is None:
-            self.b2_rows = stage_rows(params.B2[:self.n2], self.n2_pad, dev,
-                                      self.resident)
-        self.block_points = resolve_block_points(block_points, self.n_pad,
-                                                 self.resident)
+            self.n2_pad = grid_points(n2_pad, q, self.block_points)
+            self.b2_rows = stage_rows([params.B2[:self.n2]], self.n2_pad,
+                                      dev, self.resident)
         self.plan = None
         sync_device(dev)
         leave_block("stage params (host->device)")
@@ -316,9 +353,8 @@ class ProverSession:
         hg1, hg2 = self.hg1, self.hg2
 
         enter_block("stage inputs (host->device)")
-        ca, cb, cc, w_mont = (
-            torch.from_numpy(np.ascontiguousarray(a.T)).to(dev)
-            for a in (inputs.ca, inputs.cb, inputs.cc, inputs.w_mont))
+        ca, cb, cc, w_mont = (stage_cols(a, dev) for a in (
+            inputs.ca, inputs.cb, inputs.cc, inputs.w_mont))
         sync_device(dev)
         leave_block("stage inputs (host->device)")
 
@@ -342,12 +378,10 @@ class ProverSession:
         enter_block("MSMs (device Pippenger)")
         # ONE fused G1 pass for A / B1 / L / H: the MSM index rides the
         # sort key, so the four MSMs share one sort / scan / reduction
-        g1_keys = torch.cat([
-            w_keys[:, :m + 1], w_keys[:, :m + 1], w_keys[:, PI1:PI1 + nL],
-            h_std[:, :d], w_keys.new_zeros((L.NWORDS,
-                                            self.n_pad - self.n_tot))], 1)
-        b2_keys = torch.cat([w_keys[:, :self.n2], w_keys.new_zeros(
-            (L.NWORDS, self.n2_pad - self.n2))], 1)
+        g1_keys = pad_keys([w_keys[:, :m + 1], w_keys[:, :m + 1],
+                            w_keys[:, PI1:PI1 + nL], h_std[:, :d]],
+                           self.n_pad)
+        b2_keys = pad_keys([w_keys[:, :self.n2]], self.n2_pad)
         del w_keys, h_std
         ws_g1 = msm_window_sums_streamed(
             self.g1, g1_keys, self.g1_rows, self.chunk_s, c, self.seg, 4,
@@ -373,9 +407,7 @@ class ProverSession:
         d, m, nL, c = self.d, self.m, self.nL, self.c
         hg1, hg2 = self.hg1, self.hg2
         enter_block("MSMs (device: Straus tables + Pippenger A/H)")
-        g1_keys = torch.cat([
-            w_keys[:, :m + 1], h_std[:, :d], w_keys.new_zeros(
-                (L.NWORDS, self.n_pad - self.n_tot))], 1)
+        g1_keys = pad_keys([w_keys[:, :m + 1], h_std[:, :d]], self.n_pad)
         ws_g1 = msm_window_sums_streamed(
             self.g1, g1_keys, self.g1_rows, self.chunk_s, c, self.seg, 2,
             self.block_points, self.signed)

@@ -396,15 +396,34 @@ def upload_block(pinned: torch.Tensor, device) -> torch.Tensor:
     return out
 
 
+def block_grid(n: int, chunk_s: int, block_points):
+    """(blocks, points a block) of msm_window_sums_streamed over n points:
+    ceil(n / block_points) balanced blocks (one when block_points is
+    None), each a multiple of chunk_s.  When chunk_s divides block_points,
+    the grid of its own padded width is the same grid, so rows and keys
+    padded to it once are never padded again."""
+    nblk = 1 if block_points is None else -(-n // max(chunk_s,
+                                                       block_points))
+    per = -(-n // nblk)
+    B = -(-per // chunk_s) * chunk_s
+    return -(-n // B), B        # rounding B up can leave a block empty
+
+
+def grid_points(n: int, chunk_s: int, block_points) -> int:
+    """n rounded up to msm_window_sums_streamed's block grid."""
+    nblk, B = block_grid(n, chunk_s, block_points)
+    return nblk * B
+
+
 def msm_window_sums_streamed(cops: CurveOps, keys, rows,
                              chunk_s: int = DEFAULT_CHUNK, c: int = 16,
                              seg_ids=None, num_msms: int = 1,
                              block_points: int = None, signed: bool = False):
     """msm_window_sums over bounded blocks of points, window sums combined.
 
-    The block count is ceil(n / block_points) and the blocks are balanced
-    (equal sizes, a multiple of chunk_s); the tail is padded with y == 0
-    rows and zero keys, exact no-ops.
+    The blocks are block_grid's; the tail is padded with y == 0 rows and
+    zero keys, exact no-ops (a copy of keys and device rows: callers that
+    give them at grid_points' width skip it).
 
     keys and seg_ids lie on the device.  rows lie on the device too, or
     on the host (a numpy array or a CPU tensor).  Host rows on a CUDA
@@ -426,11 +445,7 @@ def msm_window_sums_streamed(cops: CurveOps, keys, rows,
     if not host and (block_points is None or block_points >= n):
         return msm_window_sums(cops, keys, rows, chunk_s, c, seg_ids,
                                num_msms, signed)
-    nblk = 1 if block_points is None else -(-n // max(chunk_s,
-                                                       block_points))
-    per = -(-n // nblk)
-    B = -(-per // chunk_s) * chunk_s
-    nblk = -(-n // B)           # rounding B up can leave a block empty
+    nblk, B = block_grid(n, chunk_s, block_points)
     n_full = nblk * B
     if n_full > n:
         keys = torch.cat([keys, keys.new_zeros((L.NWORDS, n_full - n))], 1)

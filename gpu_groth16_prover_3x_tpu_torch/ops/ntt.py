@@ -5,7 +5,8 @@ radix-2 domain in the reference): radix-2 decimation in time written as
 reshape/concat stages, natural order in and out, no bit-reversal gather.
 Each stage multiplies the odd half by its twiddles with the mont_mul
 kernel (ops/mont_mul.py) and forms E + t, E - t with plain tensor
-add/sub.  Elements are (24, n) int32 Montgomery words.
+add/sub, COL_BLOCK lanes at a time into the level's output.  Elements
+are (24, n) int32 Montgomery words.
 
 The twiddle and coset tables are built on the device by repeated
 doubling with the same Montgomery product (log2 n launches), so no
@@ -19,14 +20,41 @@ from . import limbs as L
 from .mont_mul import mont_mul
 
 
-def add_words(ctx: L.MontCtx, a: torch.Tensor, b: torch.Tensor):
-    """(a + b) mod p on word tensors (plain tensor math)."""
-    return L.from_limbs(L.add(ctx, L.to_limbs(a), L.to_limbs(b)))
+# Lanes of one block of the plain add/sub.  Its 32 int64 limbs and their
+# carry temporaries take about 2.6 KB a lane, so a block holds about
+# 5.5 GB of device memory whatever the width (a half level at 2^25 would
+# take 44 GB, the full-width a*b - c of compute_h 87 GB).
+COL_BLOCK = 1 << 21
 
 
-def sub_words(ctx: L.MontCtx, a: torch.Tensor, b: torch.Tensor):
-    """(a - b) mod p on word tensors (plain tensor math)."""
-    return L.from_limbs(L.sub(ctx, L.to_limbs(a), L.to_limbs(b)))
+def _blockwise(op, ctx: L.MontCtx, a: torch.Tensor, b: torch.Tensor, out):
+    """out = op(a, b) on (24, ..., X) words, at most COL_BLOCK lanes at a
+    time; `out` (a new tensor when None) may be a strided view, or a or b
+    themselves: each block is read before it is written."""
+    a, b = torch.broadcast_tensors(a, b)
+    if out is None:
+        out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    a3, b3 = (t.reshape(L.NWORDS, -1, t.shape[-1]) for t in (a, b))
+    o3 = out.view(L.NWORDS, -1, out.shape[-1])
+    B, X = o3.shape[1:]
+    xs = min(X, COL_BLOCK)
+    bs = max(1, COL_BLOCK // X)
+    for b0 in range(0, B, bs):
+        for x0 in range(0, X, xs):
+            blk = (slice(None), slice(b0, b0 + bs), slice(x0, x0 + xs))
+            o3[blk] = L.from_limbs(op(ctx, L.to_limbs(a3[blk]),
+                                      L.to_limbs(b3[blk])))
+    return out
+
+
+def add_words(ctx: L.MontCtx, a: torch.Tensor, b: torch.Tensor, out=None):
+    """(a + b) mod p on word tensors (plain tensor math), into `out`."""
+    return _blockwise(L.add, ctx, a, b, out)
+
+
+def sub_words(ctx: L.MontCtx, a: torch.Tensor, b: torch.Tensor, out=None):
+    """(a - b) mod p on word tensors (plain tensor math), into `out`."""
+    return _blockwise(L.sub, ctx, a, b, out)
 
 
 def const_words(x: int, n: int, device) -> torch.Tensor:
@@ -101,9 +129,14 @@ def ntt(plan: NttPlan, x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
         w = w[:, None, :, None].expand(L.NWORDS, B, mp, g2 // 2)
         t = plan.mul(ctx, O.reshape(L.NWORDS, -1).contiguous(),
                      w.reshape(L.NWORDS, -1).contiguous())
-        t = t.reshape(L.NWORDS, B, mp, g2 // 2)
-        Ec = E.contiguous()
-        v = torch.cat([add_words(ctx, Ec, t), sub_words(ctx, Ec, t)], dim=2)
+        Ec = E.reshape(L.NWORDS, B, -1)       # a copy where E is strided
+        # the level's output (E + t | E - t along mp), written in place
+        v = torch.empty((L.NWORDS, B, 2, mp * (g2 // 2)), dtype=torch.int32,
+                        device=x.device)
+        add_words(ctx, Ec, t.reshape(Ec.shape), out=v[:, :, 0])
+        sub_words(ctx, Ec, t.reshape(Ec.shape), out=v[:, :, 1])
+        del Ec, t
+        v = v.reshape(L.NWORDS, B, 2 * mp, g2 // 2)
     return v.reshape(x.shape)
 
 
@@ -137,7 +170,7 @@ def compute_h(plan, ca, cb, cc, dft=None):
     h = mul(ctx, a, b)
     del a, b
     c = coset_fft(dft(cc, True))
-    h = sub_words(ctx, h, c)
+    sub_words(ctx, h, c, out=h)
     del c
     h = mul(ctx, dft(scale(plan, h, plan.z_coset_inv), True), plan.coset_inv)
     # x*R -> x: a Montgomery product with the plain integer 1 (the output

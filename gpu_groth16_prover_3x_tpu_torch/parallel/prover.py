@@ -103,7 +103,7 @@ def prove_sharded(curve: CurveParams, params: DeviceParams,
     n2_pad = round_up(hi - lo, chunk_s)
     row_bytes = 4 * (n_pad * params.A.shape[1] + n2_pad * params.B2.shape[1])
     resident = row_bytes <= resolve_resident_bytes(resident_bytes, dev)
-    g1_rows = stage_rows(np.concatenate(parts), n_pad, dev, resident)
+    g1_rows = stage_rows(parts, n_pad, dev, resident)
     sizes = [len(a) for a in parts]
     sizes[-1] += n_pad - n_tot                   # padding joins MSM 3
     seg = torch.from_numpy(np.repeat(np.arange(4), sizes)

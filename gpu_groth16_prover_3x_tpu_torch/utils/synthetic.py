@@ -21,6 +21,7 @@ import torch
 
 from ..curves.constants import R
 from ..host import ec as HE
+from ..models.gpu_prover import DeviceInput, DeviceParams
 from ..ops import limbs as L
 from ..ops.ntt import NttPlan, compute_h
 
@@ -32,9 +33,9 @@ def rand_canon(rng, p: int, shape) -> np.ndarray:
     """(24, *shape) int32 words of values below p (the top word is drawn
     below p's top word)."""
     w = rng.integers(0, 1 << 32, size=(L.NWORDS,) + tuple(shape),
-                     dtype=np.uint64)
+                     dtype=np.uint32)
     w[-1] %= p >> (32 * (L.NWORDS - 1))
-    return w.astype(np.uint32).view(np.int32)
+    return w.view(np.int32)
 
 
 def affine_words(hg, pt, deg: int, p: int) -> np.ndarray:
@@ -65,19 +66,40 @@ def query_logs(log2: int) -> dict:
             "H": (d, 3), "B2": (m + 1, 0)}
 
 
-def write_params(curve, log2: int, path: str) -> None:
-    """A parameter file for a 2^log2 domain whose rows tile KS."""
-    d1 = 1 << log2
+def query_rows(curve, log2: int):
+    """(name, rows) of each query in file order (A, B1, B2, L, H), each
+    made when the caller asks for it: rows i of a query are
+    k_{(i + shift) mod NBASE} * G (query_logs)."""
     base1 = multiples_rows(curve, "g1", KS)
     base2 = multiples_rows(curve, "g2", KS)
     logs = query_logs(log2)
+    for name in ("A", "B1", "B2", "L", "H"):
+        count, shift = logs[name]
+        base = np.roll(base2 if name == "B2" else base1, -shift, 0)
+        rows = np.empty((count, base.shape[1]), base.dtype)
+        k = min(count, NBASE)
+        rows[:k] = base[:k]
+        while k < count:            # doubling copies keep the period NBASE
+            n = min(k, count - k)
+            rows[k:k + n] = rows[:n]
+            k += n
+        yield name, rows
+
+
+def write_params(curve, log2: int, path: str) -> None:
+    """A parameter file for a 2^log2 domain whose rows tile KS."""
+    d1 = 1 << log2
     with open(path, "wb") as f:
         f.write(np.array([d1 - 1, d1], "<u8").tobytes())
-        for name in ("A", "B1", "B2", "L", "H"):
-            count, shift = logs[name]
-            base = base2 if name == "B2" else base1
-            f.write(np.roll(base, -shift, 0)[np.arange(count) % NBASE]
-                    .tobytes())
+        for _, rows in query_rows(curve, log2):
+            f.write(rows.tobytes())
+
+
+def params_arrays(curve, log2: int) -> DeviceParams:
+    """The DeviceParams that load_params reads from write_params's file,
+    made in memory: no file, so a 2^25 key costs its 38.65 GB once."""
+    d1 = 1 << log2
+    return DeviceParams(d1 - 1, d1, **dict(query_rows(curve, log2)))
 
 
 def write_synthetic(curve, log2: int, workdir: str, rng):
@@ -91,18 +113,32 @@ def write_synthetic(curve, log2: int, workdir: str, rng):
                                                           rng)
 
 
-def write_input(curve, log2: int, path: str, rng):
-    """A random input file for a 2^log2 domain; returns its values
-    (w, ca, cb, cc as (24, n) Montgomery words, r as an integer)."""
+def input_values(curve, log2: int, rng):
+    """A random input for a 2^log2 domain: w, ca, cb, cc as (24, n)
+    Montgomery words and r as an integer."""
     d1 = 1 << log2
     fr = curve.fr.p
     w, ca, cb, cc = (rand_canon(rng, fr, (n,)) for n in (d1 + 1, d1, d1, d1))
-    r_in = int(rng.integers(1, 1 << 62))
+    return w, ca, cb, cc, int(rng.integers(1, 1 << 62))
+
+
+def write_input(curve, log2: int, path: str, rng):
+    """A random input file for a 2^log2 domain; returns its values
+    (input_values)."""
+    values = input_values(curve, log2, rng)
     with open(path, "wb") as f:
-        for a in (w, ca, cb, cc):
+        for a in values[:4]:
             f.write(np.ascontiguousarray(a.T).tobytes())
-        f.write((r_in * R % fr).to_bytes(96, "little"))
-    return w, ca, cb, cc, r_in
+        f.write((values[4] * R % curve.fr.p).to_bytes(96, "little"))
+    return values
+
+
+def input_arrays(values) -> DeviceInput:
+    """input_values as the DeviceInput that load_input reads from
+    write_input's file: its rows are views of the (24, n) words, which
+    ProverSession.prove stages without a copy."""
+    w, ca, cb, cc, r_in = values
+    return DeviceInput(w.T, ca.T, cb.T, cc.T, r_in)
 
 
 def known_log(ks, count: int, shift: int, scalars) -> int:
@@ -114,13 +150,25 @@ def known_log(ks, count: int, shift: int, scalars) -> int:
     return sum(a * k for a, k in zip(acc, ks))
 
 
-def tiled_log(ks, keys: np.ndarray) -> int:
-    """known_log(ks, n, 0, scalars) of (24, n) scalar words, n a multiple
-    of len(ks): each word summed per class in uint64 (n / len(ks) terms
-    below 2^32 each), so 2^20 scalars take milliseconds."""
+TILE_COLUMNS = 1 << 20      # scalar columns summed at a time by tiled_log
+
+
+def tiled_log(ks, keys, shift: int = 0) -> int:
+    """known_log(ks, n, shift, scalars) of (24, n) scalar words: each word
+    summed per class k_{(i + shift) mod len(ks)} in uint64 (at most
+    n / len(ks) + 1 terms below 2^32 each), TILE_COLUMNS columns at a
+    time, so 2^25 scalars take seconds and a few hundred MB."""
     nb = len(ks)
-    w = np.asarray(keys).view(np.uint32).astype(np.uint64)
-    sums = w.reshape(L.NWORDS, -1, nb).sum(axis=1)
+    keys = np.asarray(keys)
+    n = keys.shape[1]
+    sums = np.zeros((L.NWORDS, nb), np.uint64)
+    for lo in range(0, n, TILE_COLUMNS):
+        part = keys[:, lo:lo + TILE_COLUMNS].view(np.uint32)
+        lead = (lo + shift) % nb            # class of the part's column 0
+        w = np.zeros((L.NWORDS, -(-(lead + part.shape[1]) // nb) * nb),
+                     np.uint64)
+        w[:, lead:lead + part.shape[1]] = part
+        sums += w.reshape(L.NWORDS, -1, nb).sum(axis=1, dtype=np.uint64)
     return sum(k * sum(int(sums[j, b]) << (32 * j) for j in range(L.NWORDS))
                for b, k in enumerate(ks))
 
@@ -139,26 +187,34 @@ def read_proof(path: str, curve):
     return a, b, c
 
 
-def expected_proof(curve, log2: int, ks, logs, values, device):
-    """(A, B, C) of an input from the known logs, with H from the kernels'
-    pipeline on `device`; returns (affine points, (H words, the input's
-    ca, cb, cc on the device))."""
-    w, ca, cb, cc, r_in = values
-    fr = curve.fr
-    dev_in = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
-              for a in (ca, cb, cc)]
-    h_k = compute_h(NttPlan(fr, 1 << log2, device), *dev_in)
-    h_std = L.words_to_ints(h_k[1].cpu().numpy())
-    rinv = pow(R, -1, fr.p)
-    wstd = [v * rinv % fr.p for v in L.words_to_ints(w)]
-    sA = known_log(ks, *logs["A"], wstd)
-    sB1 = known_log(ks, *logs["B1"], wstd)
-    sB2 = known_log(ks, *logs["B2"], wstd)
-    sL = known_log(ks, logs["L"][0], logs["L"][1], wstd[2:])
-    sH = known_log(ks, *logs["H"], h_std)
+def known_proof(curve, ks, logs, w, h_std, r_in: int):
+    """(A, B, C) affine from the known logs: w the (24, m + 1) Montgomery
+    witness words, h_std the (24, >= d) standard-domain H words.  The
+    logs are linear in the scalars, so the witness's class sums are taken
+    on its Montgomery words and divided by R once."""
+    p = curve.fr.p
+    rinv = pow(R, -1, p)
+
+    def log_of(name, words, lo=0):
+        count, shift = logs[name]
+        return tiled_log(ks, words[:, lo:lo + count], shift)
+
+    sA, sB1, sB2 = (log_of(q, w) * rinv for q in ("A", "B1", "B2"))
+    sL = log_of("L", w, 2) * rinv
+    sH = log_of("H", h_std)
     hg1, hg2 = HE.g1_group(curve), HE.g2_group(curve)
     g1, g2 = HE.g1_generator(curve), HE.g2_generator(curve)
-    want = (hg1.to_affine(hg1.mul(sA % fr.p, g1)),
-            hg2.to_affine(hg2.mul(sB2 % fr.p, g2)),
-            hg1.to_affine(hg1.mul((sH + sL + r_in * sB1) % fr.p, g1)))
-    return tuple(tuple(x) for x in want), (h_k, dev_in)
+    want = (hg1.to_affine(hg1.mul(sA % p, g1)),
+            hg2.to_affine(hg2.mul(sB2 % p, g2)),
+            hg1.to_affine(hg1.mul((sH + sL + r_in * sB1) % p, g1)))
+    return tuple(tuple(x) for x in want)
+
+
+def expected_proof(curve, log2: int, ks, logs, values, device):
+    """(A, B, C) affine of an input from the known logs, with H from the
+    kernels' pipeline on `device`."""
+    w, ca, cb, cc, r_in = values
+    dev_in = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+              for a in (ca, cb, cc)]
+    h_std = compute_h(NttPlan(curve.fr, 1 << log2, device), *dev_in)[1]
+    return known_proof(curve, ks, logs, w, h_std.cpu().numpy(), r_in)

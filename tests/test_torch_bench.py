@@ -239,7 +239,7 @@ def test_synthetic_proof_equals_known_logs(tmp_path, monkeypatch):
                                                        str(tmp_path), rng)
     out = str(tmp_path / "out")
     GP.prove_files(MNT4753, params, inp, out, device="cpu")
-    want, _ = SY.expected_proof(MNT4753, 4, ks, logs, values, "cpu")
+    want = SY.expected_proof(MNT4753, 4, ks, logs, values, "cpu")
     got = SY.read_proof(out, MNT4753)
     assert got == want
     assert got[0] != got[2]
