@@ -26,23 +26,34 @@ Phases (any failure exits non-zero before the result line):
      block size (2^16 points in 4 blocks of 2^14, signed digits, c = 16,
      two fused MSMs) must finalise to the same group elements as the
      unstreamed pass;
-  6. the table path through files at MNT6753 2^15: `gpu MNT6753 preprocess`
-     on the phase-4 parameters (about 0.98 GB of tables), then `gpu MNT6753
-     compute` beside the table file: its proof must have the sha256 of the
-     phase-4 Pippenger proof.  Held against their plain versions on the
+  6. the table path at MNT6753 2^15: `gpu MNT6753 preprocess` on the
+     phase-4 parameters (about 0.98 GB of tables), then `gpu MNT6753
+     compute` beside the table file: its proof must have the sha256 of
+     the phase-4 Pippenger proof.  Then the tables built on the card by
+     multiples_rows go to prove(tables=<device tensors>): A, B and C must
+     match the known logs.  Held against their plain versions on the
      card: ec_mixed_add on the first steps of the table build at its
      widths (2^15 + 1 and 2^15 - 1 lanes), the Straus tree of the B1 and
      B2 tables at the widths of the proof's (first level 151 x 2^14
      lanes) and the affine normalisation, the last also against host
      inversions;
-  7. the table path at MNT4753 2^20, in memory: multiples_rows builds the
-     B1, B2 and L tables on the card and prove(tables=...) takes the
-     device tensors; A, B and C must match the known logs.  As in phase
-     6, ec_mixed_add at 2^20 + 1 and 2^20 - 1 lanes and the Straus trees
-     at the proof's first-level widths (G1 about 7.3 M lanes, Fq2 about
-     3.7 M) are held against their plain versions.  The table file would
-     be about 25 GB at this size, so writing and reading it back is left
-     to phase 6;
+  7. the reference's GPU workflow at its default size, MNT4753 2^20, in a
+     directory of its own: `gpu MNT4753 preprocess` writes the 24.96 GB
+     table file (31 x ((m+1) x 576 + (m-1) x 192) bytes, 93 ec_mixed_add
+     launches, each block of rows copied to the host and written as it
+     is built), then `gpu MNT4753 compute` beside it takes the table
+     path: the proof's sha256 must equal phase 4's Pippenger proof and
+     A, B and C the known logs.  It prints each step's seconds (load
+     params, build, copy to the host, write; load preprocessing, the
+     tables' upload, the prover's laps), the file's bytes and, for each
+     command, the peaks of device memory, host RSS and disk; CUDA events
+     split the table proof's MSM lap (Straus digits, row gathers, lifts,
+     trees with their group adds apart, the A|H Pippenger pass with its
+     kernels apart) and the readback.  On the tables load_preprocessed
+     gave back: ec_mixed_add at 2^20 + 1 and 2^20 - 1 lanes on the base
+     rows read from the file, and the Straus trees at the proof's
+     first-level widths (G1 about 7.3 M lanes, Fq2 about 3.7 M), each
+     against its plain version.  The file is removed whatever happens;
   8. `gpu MNT4753 serve` at 2^20 with the phase-4 input and a fresh random
      one: one staging of the parameters, both proofs equal to their
      known logs;
@@ -189,6 +200,7 @@ from gpu_groth16_prover_3x_tpu_torch.utils.synthetic import (  # noqa: E402
     write_input, write_synthetic)
 
 import __graft_entry_torch__ as GE  # noqa: E402
+import prove_at_scale as PAS  # noqa: E402
 
 SEED = 20261016
 SETUP_SEED = 7
@@ -523,6 +535,24 @@ class KernelTimer:
         return out
 
 
+class SpanTimer(KernelTimer):
+    """KernelTimer for functions that take no group configuration: CUDA
+    events around each call, summed per label (cfg None).  A span that
+    returns only after the host read the device (the readback) also
+    holds the host's work."""
+
+    def _timed(self, label, fn):
+        def call(*args, **kwargs):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*args, **kwargs)
+            e1.record()
+            self.events.append((label, None, e0, e1))
+            return out
+        return call
+
+
 class UploadTimer:
     """CUDA events around each call of ops/msm.upload_block, recorded on
     the stream it runs on (the copy stream of the host-resident rows):
@@ -594,6 +624,11 @@ class Capture:
 MSM_TARGETS = {name: (M, name) for name in ("ec_add", "ec_dbl", "msm_scan")}
 TABLE_TARGETS = {"straus ec_add": (GK, "ec_add"),
                  "ec_mixed_add": (GK, "ec_mixed_add")}
+# the table proof's MSM lap and readback, step by step (phase 7)
+TABLE_SPANS = {"digits": (S, "straus_digits"), "gather": (S, "_gather"),
+               "lift": (S, "_lift"), "trees": (S, "_tree"),
+               "A|H Pippenger pass": (GP, "msm_window_sums_streamed"),
+               "readback": (GP, "finalize_windows")}
 
 
 def reset_counts() -> None:
@@ -672,12 +707,16 @@ class HostPeak:
     /proc/self/status every 20 ms by a thread (getrusage's ru_maxrss is
     the peak of the whole run, not of one phase)."""
 
+    def read(self) -> int:
+        return rss_bytes()
+
     def __enter__(self):
-        self.peak, self.done = rss_bytes(), threading.Event()
+        self.start = self.peak = self.read()
+        self.done = threading.Event()
 
         def sample():
             while not self.done.wait(0.02):
-                self.peak = max(self.peak, rss_bytes())
+                self.peak = max(self.peak, self.read())
         self.thread = threading.Thread(target=sample, daemon=True)
         self.thread.start()
         return self
@@ -685,7 +724,19 @@ class HostPeak:
     def __exit__(self, *exc):
         self.done.set()
         self.thread.join()
-        self.peak = max(self.peak, rss_bytes())
+        self.peak = max(self.peak, self.read())
+
+
+class DiskPeak(HostPeak):
+    """The used bytes of the file system that holds `path`, sampled as
+    HostPeak samples the resident set; `peak - start` is the block's peak
+    disk use."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def read(self) -> int:
+        return shutil.disk_usage(self.path).used
 
 
 def rss_bytes() -> int:
@@ -967,68 +1018,190 @@ def table_files_phase(rng, run, workdir: str, results: dict) -> dict:
     finally:
         os.chdir(workdir)
     normalisation_check(rng, curve)
-    return dict(build_s=build_s, build=build, build_calls=build_calls,
-                wall_s=wall, launches=launches, in_proof=in_proof,
-                phases=laps, bytes=size)
 
-
-def table_memory_phase(rng, run, results: dict) -> dict:
-    """Phase 7: tables built on the card, handed to prove(tables=...)."""
-    curve = MNT4753
+    # the table path on tensors already on the card: multiples_rows
+    # builds the tables there and prove(tables=...) takes them
     params = GP.load_params(run["params"], curve)
     inputs = GP.load_input(run["input"], curve, params.d, params.m)
-    mixed_add_path_check(curve, (("B1", params.B1, "g1"),
-                                 ("B2", params.B2, "g2"),
-                                 ("L", params.L, "g1")), results)
-    torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    tables = tuple(PD.multiples_rows(curve, group, rows, device=DEV)
+                   for rows, group in ((params.B1, "g1"), (params.B2, "g2"),
+                                       (params.L, "g1")))
     reset_counts()
-    t0 = time.time()
-    with KernelTimer(TABLE_TARGETS) as tb:
-        tables = tuple(PD.multiples_rows(curve, group, rows, device=DEV)
-                       for rows, group in ((params.B1, "g1"),
-                                           (params.B2, "g2"),
-                                           (params.L, "g1")))
-        torch.cuda.synchronize()
-    build_s = time.time() - t0
-    build = counts()
-    build_calls = tb.totals()
-    build_peak = torch.cuda.max_memory_allocated()
-    log(f"{curve.name} 2^{run['log2']} table build on the card: "
-        f"{build_s:.2f} s, {sum(t.numel() for t in tables) * 4 / 1e9:.2f} GB "
-        f"of tables, peak {build_peak / 2**30:.2f} GiB, launches {build}")
-    log_timer("in the table build", build_calls)
-    require_launched("MNT4753 table build", build, BUILD_KERNELS)
-
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t1 = time.time()
-    with KernelTimer(MSM_TARGETS) as tm, KernelTimer(TABLE_TARGETS) as tt:
-        proof = GP.prove(curve, params, inputs, device=DEV, tables=tables)
-    wall = time.time() - t1
-    launches = counts()
-    in_proof = {**tm.totals(), **tt.totals()}
-    peak = torch.cuda.max_memory_allocated()
-    laps = profiling.last_laps()
-    log(f"{curve.name} 2^{run['log2']} prove with device tables: "
-        f"{wall:.2f} s, peak device memory {peak / 2**30:.2f} GiB")
-    for name in ("stage params (host->device)", "stage inputs (host->device)",
-                 "H pipeline (device NTT)", "scalar from_monty (device)",
-                 MSM_STRAUS, "readback + host assembly"):
-        log(f"  phase {name}: {laps[name]:.3f} s")
-    log(f"  launches: {launches}")
-    log_timer("in the table proof", in_proof)
-    require_launched("MNT4753 table proof", launches, PATH_KERNELS)
-    require_proof("MNT4753 2^20 table proof", proof, run["want"])
-    log(f"{curve.name} 2^{run['log2']} table proof: A, B, C match the known "
-        f"logs")
-    straus_check(rng, curve, tables, params.m + 1, results)
+    t2 = time.time()
+    proof = GP.prove(curve, params, inputs, device=DEV, tables=tables)
+    dev_wall = time.time() - t2
+    dev_launches = counts()
     del tables
-    torch.cuda.empty_cache()
+    log(f"{curve.name} 2^{run['log2']} prove(tables=<device tensors>): "
+        f"{dev_wall:.2f} s, launches {dev_launches}")
+    require_launched("MNT6753 proof from device tables", dev_launches,
+                     PATH_KERNELS)
+    require_proof("MNT6753 proof from device tables", proof, run["want"])
+    log(f"{curve.name} proof from device tables: A, B, C match the known "
+        f"logs")
     return dict(build_s=build_s, build=build, build_calls=build_calls,
-                build_peak=build_peak, wall_s=wall, launches=launches,
-                in_proof=in_proof, peak_bytes=peak, phases=laps)
+                wall_s=wall, launches=launches, in_proof=in_proof,
+                phases=laps, bytes=size, device_tables_wall_s=dev_wall,
+                device_tables_launches=dev_launches)
+
+
+def table_breakdown(lap_s: float, in_proof: dict, spans: dict) -> dict:
+    """The table proof's MSM lap split by its CUDA-event spans: device ms
+    of the Straus digits, row gathers, lifts and trees (the trees' group
+    adds apart), the A|H Pippenger pass (its kernels apart), the rest of
+    the lap, and the readback lap."""
+    def ms(totals, *keys):
+        return sum(totals.get(k, (0, 0.0))[1] for k in keys)
+    tree_add = ms(in_proof, *(("straus ec_add", c) for c in (0, 1)))
+    pass_kernels = ms(in_proof, *((n, c) for n in ("ec_add", "ec_dbl",
+                                                   "msm_scan")
+                                  for c in (0, 1)))
+    out = {k: ms(spans, (k, None)) for k in ("digits", "gather", "lift",
+                                              "trees", "A|H Pippenger pass",
+                                              "readback")}
+    out.update({"trees: group add kernels": tree_add,
+                "trees: outside the kernels": out["trees"] - tree_add,
+                "A|H pass: kernels": pass_kernels,
+                "A|H pass: outside the kernels":
+                    out["A|H Pippenger pass"] - pass_kernels})
+    inside = sum(out[k] for k in ("digits", "gather", "lift", "trees",
+                                  "A|H Pippenger pass"))
+    out["lap, not in a span"] = lap_s * 1e3 - inside
+    out["lap outside the kernels"] = lap_s * 1e3 - tree_add - pass_kernels
+    return out
+
+
+def table_file_phase(rng, run, workdir: str, results: dict) -> dict:
+    """Phase 7: the reference's GPU workflow at MNT4753 2^20 through its
+    table file: `gpu MNT4753 preprocess`, then `gpu MNT4753 compute`
+    beside the file, in a directory of their own."""
+    curve = MNT4753
+    m = 1 << run["log2"]
+    nL = m - 1
+    tdir = os.path.join(workdir, "tables20")
+    os.mkdir(tdir)
+    os.chdir(tdir)
+    table = os.path.abspath(f"{curve.name}_preprocessed")
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        steps = {}
+        undo = PAS.timed_steps(torch, steps, PD, GP)
+        t0 = time.time()
+        try:
+            with KernelTimer(TABLE_TARGETS) as tb, HostPeak() as host, \
+                    DiskPeak(tdir) as disk:
+                rc = cli.main(["gpu", curve.name, "preprocess", run["params"],
+                               "--device", DEV])
+                torch.cuda.synchronize()
+        finally:
+            undo()
+        wall = time.time() - t0
+        build = counts()
+        build_calls = tb.totals()
+        size = os.path.getsize(table)
+        pre = dict(wall_s=wall, steps=steps, peak_bytes=(
+            torch.cuda.max_memory_allocated()), host_peak_bytes=host.peak,
+            disk_bytes=disk.peak - disk.start, file_bytes=size,
+            build_s=wall - sum(steps.values()))
+        log(f"{curve.name} 2^{run['log2']} preprocess: {wall:.2f} s: load "
+            f"params {steps['load params']:.3f} s, build "
+            f"{pre['build_s']:.3f} s, copy to the host {steps['copy']:.3f} "
+            f"s, write {steps['write']:.3f} s; {size} bytes; peak device "
+            f"memory {pre['peak_bytes'] / 2**30:.2f} GiB, peak host RSS "
+            f"{host.peak / 2**30:.2f} GiB, peak disk "
+            f"{pre['disk_bytes'] / 1e9:.2f} GB; launches {build}")
+        log_timer("in the table build", build_calls)
+        if rc != 0 or size != PAS.table_bytes(m):
+            raise AssertionError(f"preprocess rc {rc}, {size} bytes, "
+                                 f"expected {PAS.table_bytes(m)}")
+        if build["ec_mixed_add"] != 93:
+            raise AssertionError(f"{build['ec_mixed_add']} mixed adds in "
+                                 f"the table build, expected 93")
+        require_launched("MNT4753 table build", build, BUILD_KERNELS)
+
+        out = os.path.abspath("output-tables")
+        loaded = []
+        load = GP.load_preprocessed
+
+        def keep(*args):
+            loaded.append(load(*args))
+            return loaded[-1]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        steps = {}
+        undo = PAS.timed_steps(torch, steps, PD, GP)
+        GP.load_preprocessed = keep
+        buf = io.StringIO()
+        t1 = time.time()
+        try:
+            with KernelTimer(MSM_TARGETS) as tm, \
+                    KernelTimer(TABLE_TARGETS) as tt, \
+                    SpanTimer(TABLE_SPANS) as sp, HostPeak() as host, \
+                    DiskPeak(tdir) as disk, contextlib.redirect_stdout(buf):
+                rc = cli.main(["gpu", curve.name, "compute", run["params"],
+                               run["input"], out, "--device", DEV])
+        finally:
+            GP.load_preprocessed = load
+            undo()
+        wall = time.time() - t1
+        text = buf.getvalue()
+        log(text.rstrip())
+        launches = counts()
+        laps = profiling.last_laps()
+        lines = {k: float(v) for k, v in
+                 re.findall(r"^(.+): ([0-9.]+)s$", text, re.M)}
+        in_proof = {**tm.totals(), **tt.totals()}
+        peak = torch.cuda.max_memory_allocated()
+        log(f"{curve.name} 2^{run['log2']} compute with the table file: "
+            f"{wall:.2f} s, peak device memory {peak / 2**30:.2f} GiB, peak "
+            f"host RSS {host.peak / 2**30:.2f} GiB, peak disk "
+            f"{(disk.peak - disk.start) / 1e9:.2f} GB over the table file")
+        log(f"  load preprocessing {lines['load preprocessing']:.3f} s, "
+            f"upload of the tables {steps['upload']:.3f} s (in stage "
+            f"params)")
+        for name in ("stage params (host->device)",
+                     "stage inputs (host->device)", "H pipeline (device NTT)",
+                     "scalar from_monty (device)", MSM_STRAUS,
+                     "readback + host assembly"):
+            log(f"  phase {name}: {laps[name]:.3f} s")
+        log(f"  launches: {launches}")
+        log_timer("in the table proof", in_proof)
+        breakdown = table_breakdown(laps[MSM_STRAUS], in_proof, sp.totals())
+        for k, v in breakdown.items():
+            log(f"  table proof, {k}: {v:.1f} ms")
+        require_launched("MNT4753 table proof", launches, PATH_KERNELS)
+        if rc != 0 or "load preprocessing" not in lines:
+            raise AssertionError("compute did not take the table file")
+        if sha256(out) != run["sha"]:
+            raise AssertionError("MNT4753 2^20 table proof sha256 differs "
+                                 "from the Pippenger proof of phase 4")
+        require_proof("MNT4753 2^20 table proof", read_proof(out, curve),
+                      run["want"])
+        log(f"{curve.name} 2^{run['log2']} table proof: sha256 {run['sha']} "
+            f"equals phase 4's Pippenger proof; A, B, C match the known "
+            f"logs")
+
+        # the kernels on this path's operands: the base rows read back
+        # from the file (row 0 of each table is 1 * P) and the tables
+        B1_t, B2_t, L_t = loaded.pop()
+        mixed_add_path_check(curve, (("B1", B1_t[:m + 1], "g1"),
+                                     ("B2", B2_t[:m + 1], "g2"),
+                                     ("L", L_t[:nL], "g1")), results)
+        straus_check(rng, curve, (B1_t, B2_t), m + 1, results)
+        del B1_t, B2_t, L_t
+    finally:
+        if os.path.exists(table):
+            os.remove(table)
+        os.chdir(workdir)
+    torch.cuda.empty_cache()
+    return dict(pre=pre, build_calls=build_calls, build=build, wall_s=wall,
+                launches=launches, in_proof=in_proof, peak_bytes=peak,
+                host_peak_bytes=host.peak, phases=laps, lines=lines,
+                steps=steps, breakdown=breakdown)
 
 
 def serve_phase(rng, run, workdir: str) -> dict:
@@ -2211,8 +2384,9 @@ def main() -> int:
             log(f"full-size proofs done at {time.time() - t0:.1f} s")
             pre6 = table_files_phase(rng, run6, workdir, results)
             log(f"table path through files done at {time.time() - t0:.1f} s")
-            tab4 = table_memory_phase(rng, run4, results)
-            log(f"table path in memory done at {time.time() - t0:.1f} s")
+            tab4 = table_file_phase(rng, run4, workdir, results)
+            log(f"table path through the 2^20 file done at "
+                f"{time.time() - t0:.1f} s")
             serve4 = serve_phase(rng, run4, workdir)
             log(f"serve done at {time.time() - t0:.1f} s")
             native_epilogue_check((run4, run6))
@@ -2253,6 +2427,8 @@ def main() -> int:
                              run4["in_proof"])
         entry["launches_mnt6753_2p15"] = run6["launches"][name]
         entry["launches_table_proof_2p20"] = tab4["launches"][name]
+        entry["launches_device_tables_proof_mnt6753_2p15"] = \
+            pre6["device_tables_launches"][name]
         entry["launches_serve_2_proofs_2p20"] = serve4["launches"][name]
         entry["launches_sharded_world1_2p20"] = \
             par["world1"]["launches"][name]

@@ -271,6 +271,13 @@ def pad_keys(parts, n_pad: int) -> torch.Tensor:
     return out
 
 
+def upload_tables(tables, device) -> tuple:
+    """(B1_t, B2_t, L_t) table rows, host arrays or tensors -> 2-D word
+    rows on `device` (tensors already there are kept as they are)."""
+    return tuple(torch.as_tensor(t).to(device).reshape(-1, t.shape[-1])
+                 for t in tables)
+
+
 class ProverSession:
     """One parameter set staged for a device; `prove` runs one proof.
 
@@ -316,9 +323,7 @@ class ProverSession:
         else:
             # the table MSMs take B1, B2 and L; A and H stay on Pippenger
             parts = [params.A[:m + 1], params.H[:d]]
-            self.tables = tuple(
-                torch.as_tensor(t).to(dev).reshape(-1, t.shape[-1])
-                for t in tables)
+            self.tables = upload_tables(tables, dev)
         self.n_tot = sum(len(a) for a in parts)
         n_pad = round_up(self.n_tot, q)
         row_bytes = n_pad * params.A.shape[1] * 4

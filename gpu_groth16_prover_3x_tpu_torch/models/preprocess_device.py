@@ -9,14 +9,16 @@ row, one launch of the mixed-add kernel (group_kernels.ec_mixed_add) over
 the whole query vector.  Rows are normalised to affine
 (ops/inverse.to_affine_rows) a block at a time, the block's projective
 points kept under ROWS_BYTES, so the projective rows never all live at
-once (31 Fq2 rows at 2^20 points would be 18.6 GB).
+once (31 Fq2 rows at 2^20 points would be 18.6 GB).  `run_preprocess`
+writes each block to the file as it comes (multiples_blocks,
+write_rows): neither the card nor the host holds a whole table (the
+MNT4753 B2 table alone is 12.48 GB at 2^20 points).
 
 The file is byte-identical to the reference format and to the JAX
 package's `cpu` and `tpu` preprocess: affine rows of raw Montgomery
 words, row-major by multiple, infinity as the all-zero point.
 """
 
-import numpy as np
 import torch
 
 from ..curves.constants import CurveParams
@@ -44,12 +46,14 @@ def affine_operand(cops, rows, device):
     return xy, (xy[deg:] == 0).reshape(deg * L.NWORDS, n).all(0)
 
 
-def multiples_rows(curve: CurveParams, group: str, rows, c: int = STRAUS_C,
-                   device="cuda") -> torch.Tensor:
+def multiples_blocks(curve: CurveParams, group: str, rows,
+                     c: int = STRAUS_C, device="cuda"):
     """Affine base rows (n, 2*deg*24) int32 (numpy or tensor) -> the
-    table (2^c - 1, n, 2*deg*24) int32 on `device`: entry [k, i] is the
-    affine (k+1) * P_i in the row layout, the identity as the zero row.
-    One ec_mixed_add launch a row."""
+    table's rows in order, a block at a time: yields (k0, block), block
+    (k, n, 2*deg*24) int32 on `device` with entry [j, i] the affine
+    (k0 + j + 1) * P_i in the row layout, the identity as the zero row.
+    One ec_mixed_add launch a row; a block is the rows whose projective
+    points fit ROWS_BYTES, normalised together."""
     cops = get_curve_ops(curve, group)
     deg = cops.deg
     dev = torch.device(device)
@@ -57,26 +61,44 @@ def multiples_rows(curve: CurveParams, group: str, rows, c: int = STRAUS_C,
     n, width = xy.shape[-1], 2 * deg * L.NWORDS
     nmul = (1 << c) - 1
     per = max(1, ROWS_BYTES // (n * 3 * deg * L.NWORDS * 4))
-    out = torch.empty((nmul, n, width), dtype=torch.int32, device=dev)
     acc = identity_words(cops, n, dev)
     block = []
     for k in range(nmul):
         acc = group_kernels.ec_mixed_add(cops, acc, xy, inf)
         block.append(acc)
         if len(block) == per or k == nmul - 1:
-            k0 = k + 1 - len(block)
-            out[k0:k + 1] = to_affine_rows(
+            yield k + 1 - len(block), to_affine_rows(
                 cops, torch.cat(block, -1)).reshape(len(block), n, width)
             block = []
+
+
+def multiples_rows(curve: CurveParams, group: str, rows, c: int = STRAUS_C,
+                   device="cuda") -> torch.Tensor:
+    """Affine base rows (n, 2*deg*24) int32 (numpy or tensor) -> the
+    whole table (2^c - 1, n, 2*deg*24) int32 on `device`: entry [k, i] is
+    the affine (k+1) * P_i in the row layout (multiples_blocks)."""
+    cops = get_curve_ops(curve, group)
+    out = torch.empty(((1 << c) - 1, len(rows), 2 * cops.deg * L.NWORDS),
+                      dtype=torch.int32, device=torch.device(device))
+    for k0, block in multiples_blocks(curve, group, rows, c, device):
+        out[k0:k0 + len(block)] = block
     return out
+
+
+def write_rows(f, rows: torch.Tensor) -> None:
+    """Append table rows (a block of multiples_blocks) to the open file
+    as raw words."""
+    rows.cpu().numpy().tofile(f)
 
 
 def run_preprocess(curve: CurveParams, params_path: str, output_path: str,
                    device="cuda") -> None:
-    """Write `<CURVE>_preprocessed`: the B1, B2 and L multiples, C = 5."""
+    """Write `<CURVE>_preprocessed`: the B1, B2 and L multiples, C = 5,
+    each table a block of rows at a time."""
     params = load_params(params_path, curve)
     with open(output_path, "wb") as f:
         for rows, group in ((params.B1, "g1"), (params.B2, "g2"),
                             (params.L, "g1")):
-            table = multiples_rows(curve, group, rows, device=device)
-            np.ascontiguousarray(table.cpu().numpy()).tofile(f)
+            for _, block in multiples_blocks(curve, group, rows,
+                                             device=device):
+                write_rows(f, block)

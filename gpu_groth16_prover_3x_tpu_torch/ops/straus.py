@@ -66,6 +66,15 @@ def straus_digits(keys: torch.Tensor, c: int = STRAUS_C) -> torch.Tensor:
     return (pair >> off[:, None]) & ((1 << c) - 1)
 
 
+def _gather(table_rows: torch.Tensor, dig: torch.Tensor) -> torch.Tensor:
+    """(k, n) digits -> the (k*n, 2*deg*24) table rows they pick: row
+    (d - 1)*n + i for digit d of scalar i (digit 0 reads row i, which
+    _lift replaces by the identity)."""
+    n = dig.shape[1]
+    iota = torch.arange(n, device=dig.device)
+    return table_rows[((dig - 1).clamp(min=0) * n + iota).reshape(-1)]
+
+
 def _lift(cops, rows: torch.Tensor, zero: torch.Tensor) -> torch.Tensor:
     """(B, 2*deg*24) affine rows -> (3*deg, 24, B) projective points;
     rows with y == 0 and lanes where `zero` is set become (0 : 1 : 0)."""
@@ -80,6 +89,21 @@ def _lift(cops, rows: torch.Tensor, zero: torch.Tensor) -> torch.Tensor:
     return pts
 
 
+def _tree(cops, pts: torch.Tensor, add) -> torch.Tensor:
+    """(3*deg, 24, k, n) projective points -> (3*deg, 24, k), the sum
+    over n: ceil(log2 n) halving levels of `add`, an odd lane carried up
+    unchanged."""
+    F3 = pts.shape[0]
+    k = pts.shape[2]
+    while pts.shape[-1] > 1:
+        h = pts.shape[-1] // 2
+        s = add(cops, *(pts[..., a:a + h].reshape(F3, L.NWORDS, k * h)
+                        .contiguous() for a in (0, h)))
+        pts = torch.cat([s.reshape(F3, L.NWORDS, k, h), pts[..., 2 * h:]],
+                        -1)
+    return pts[..., 0]
+
+
 def straus_window_sums(cops, keys, table_rows, c: int = STRAUS_C,
                        add=None):
     """Window sums of one table MSM: (3*deg, 24, num_windows(c)) int32,
@@ -90,7 +114,6 @@ def straus_window_sums(cops, keys, table_rows, c: int = STRAUS_C,
     add = add or group_kernels.ec_add
     deg = cops.deg
     nmul = (1 << c) - 1
-    F3 = 3 * deg
     if (table_rows.dim() != 2 or table_rows.shape[1] != 2 * deg * L.NWORDS
             or table_rows.shape[0] % nmul or table_rows.shape[0] == 0):
         raise ValueError(f"table rows shape {tuple(table_rows.shape)}")
@@ -99,23 +122,14 @@ def straus_window_sums(cops, keys, table_rows, c: int = STRAUS_C,
         raise ValueError(f"keys shape {tuple(keys.shape)}, want (24, {n})")
     dev = table_rows.device
     dig = straus_digits(keys.to(dev), c)
-    nwin = dig.shape[0]
     wb = window_block(deg, n, c)
-    iota = torch.arange(n, device=dev)
     sums = []
-    for w0 in range(0, nwin, wb):
+    for w0 in range(0, dig.shape[0], wb):
         d = dig[w0:w0 + wb]
-        k = d.shape[0]
-        idx = ((d - 1).clamp(min=0) * n + iota).reshape(-1)
-        pts = _lift(cops, table_rows[idx], d.reshape(-1) == 0)
-        pts = pts.reshape(F3, L.NWORDS, k, n)
-        while pts.shape[-1] > 1:
-            h = pts.shape[-1] // 2
-            s = add(cops, *(pts[..., a:a + h].reshape(F3, L.NWORDS, k * h)
-                            .contiguous() for a in (0, h)))
-            pts = torch.cat([s.reshape(F3, L.NWORDS, k, h),
-                             pts[..., 2 * h:]], -1)
-        sums.append(pts[..., 0])
+        # no name holds the lifted points: _tree frees each level
+        sums.append(_tree(cops, _lift(cops, _gather(table_rows, d),
+                                      d.reshape(-1) == 0)
+                          .reshape(3 * deg, L.NWORDS, *d.shape), add))
     return torch.cat(sums, -1)
 
 

@@ -316,6 +316,26 @@ def test_table_path_fixture_proof_on_card(tmp_path, monkeypatch):
         want["MNT4753-output"]
 
 
+@pytest.mark.parametrize("curve_name", ["MNT4753", "MNT6753"])
+def test_table_file_in_blocks_on_card_vs_cpu(curve_name, tmp_path,
+                                             monkeypatch):
+    """run_preprocess on the card with blocks of 4 B1 rows (ROWS_BYTES
+    forced down) writes the bytes of the CPU's one-block file."""
+    card()
+    from gpu_groth16_prover_3x_tpu_torch.models import preprocess_device \
+        as PD
+    curve = CURVES[curve_name]
+    params = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "data", "torch_port", f"{curve_name}-parameters")
+    PD.run_preprocess(curve, params, str(tmp_path / "cpu"), device="cpu")
+    m = PD.load_params(params, curve).m
+    monkeypatch.setattr(PD, "ROWS_BYTES", 4 * (m + 1) * 3 * 24 * 4)
+    before = GK.EC_MIXED_ADD.launches
+    PD.run_preprocess(curve, params, str(tmp_path / "card"), device="cuda")
+    assert GK.EC_MIXED_ADD.launches == before + 93
+    assert (tmp_path / "card").read_bytes() == (tmp_path / "cpu").read_bytes()
+
+
 # -- the trusted setup on the card --------------------------------------------
 
 @pytest.mark.parametrize("curve_name", ["MNT4753", "MNT6753"])
