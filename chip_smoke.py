@@ -104,7 +104,9 @@ Phases (any failure exits non-zero before the result line):
      scan of each MSM in a second host-resident proof is held against
      the plain scan.  11c: prove_sharded at world 2 on gloo with each
      rank's G1 rows in host memory, MNT6753 2^15 in global blocks of
-     2^16: every rank's proof equals phase 4's.  11d: an MNT4753 proof
+     2^16: every rank's proof equals phase 4's, and each rank's streamed
+     MSMs got keys, rows and segment ids at one width that their block
+     grid covers exactly (nothing padded again).  11d: an MNT4753 proof
      at d + 1 = 2^25 through a ProverSession on in-memory synthetic keys
      with no forcing: its 38.65 GB of rows pass 3/8 of the card and stay
      in host memory, each of its 81 blocks goes up from pinned memory on
@@ -201,6 +203,8 @@ from gpu_groth16_prover_3x_tpu_torch.utils.synthetic import (  # noqa: E402
 
 import __graft_entry_torch__ as GE  # noqa: E402
 import prove_at_scale as PAS  # noqa: E402
+from prove_at_scale import (CollectiveTimer, KernelTimer,  # noqa: E402
+                            UploadTimer)
 
 SEED = 20261016
 SETUP_SEED = 7
@@ -488,53 +492,6 @@ def fixture_gate(workdir: str) -> None:
 
 # -- phase 4: the main path at full size ----------------------------------------------
 
-class KernelTimer:
-    """CUDA events around calls of kernel wrappers, summed per label and
-    group configuration.  `targets` maps a label to (module, attribute):
-    the callers look the wrapper up as that module's attribute at each
-    call (ops/msm.py its own ec_add, ec_dbl and msm_scan; ops/straus.py
-    and models/preprocess_device.py group_kernels.ec_add and
-    ec_mixed_add), so only their calls are timed.  The events enclose the
-    wrapper, so a sum includes its small tensor conversions beside the
-    kernel."""
-
-    def __init__(self, targets: dict):
-        self.targets = targets
-        self.events = []
-        self.saved = {}
-
-    def _timed(self, label, fn):
-        def call(cops, *args, **kwargs):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            out = fn(cops, *args, **kwargs)
-            e1.record()
-            self.events.append((label, cops.cfg, e0, e1))
-            return out
-        return call
-
-    def __enter__(self):
-        for label, (mod, attr) in self.targets.items():
-            self.saved[label] = getattr(mod, attr)
-            setattr(mod, attr, self._timed(label, self.saved[label]))
-        return self
-
-    def __exit__(self, *exc):
-        for label, fn in self.saved.items():
-            mod, attr = self.targets[label]
-            setattr(mod, attr, fn)
-
-    def totals(self) -> dict:
-        """(name, cfg) -> (calls, summed device ms)."""
-        torch.cuda.synchronize()
-        out = {}
-        for name, cfg, e0, e1 in self.events:
-            calls, ms = out.get((name, cfg), (0, 0.0))
-            out[name, cfg] = (calls + 1, ms + e0.elapsed_time(e1))
-        return out
-
-
 class SpanTimer(KernelTimer):
     """KernelTimer for functions that take no group configuration: CUDA
     events around each call, summed per label (cfg None).  A span that
@@ -551,43 +508,6 @@ class SpanTimer(KernelTimer):
             self.events.append((label, None, e0, e1))
             return out
         return call
-
-
-class UploadTimer:
-    """CUDA events around each call of ops/msm.upload_block, recorded on
-    the stream it runs on (the copy stream of the host-resident rows):
-    totals() gives (uploads, summed device ms, bytes); `stray` counts the
-    uploads whose source was not pinned or that ran on the default
-    stream."""
-
-    def __enter__(self):
-        self.saved = M.upload_block
-        self.events = []
-        self.stray = 0
-
-        def timed(pinned, device):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            if not pinned.is_pinned() or (torch.cuda.current_stream(device)
-                                          == torch.cuda.default_stream(
-                                              device)):
-                self.stray += 1
-            e0.record()
-            out = self.saved(pinned, device)
-            e1.record()
-            self.events.append((e0, e1, pinned.numel() * 4))
-            return out
-        M.upload_block = timed
-        return self
-
-    def __exit__(self, *exc):
-        M.upload_block = self.saved
-
-    def totals(self):
-        torch.cuda.synchronize()
-        return (len(self.events),
-                sum(e0.elapsed_time(e1) for e0, e1, _ in self.events),
-                sum(nb for _, _, nb in self.events))
 
 
 class Capture:
@@ -1532,37 +1452,6 @@ STREAM10 = (1 << 16, 1 << 14, 16)   # 10c: points, global block, window bits
 NTT10_LOG2 = 20                     # 10d: log2 of the NTT size
 
 
-class CollectiveTimer:
-    """Host clock around each exchange of parallel/sharded.Comm, with the
-    card drained before and after, so a sum is the exchange alone (on
-    gloo its staging copies through host memory included): name ->
-    [calls, seconds]."""
-
-    NAMES = ("all_to_all", "all_gather")
-
-    def __enter__(self):
-        self.saved = {k: getattr(SH.Comm, k) for k in self.NAMES}
-        self.calls = {k: [0, 0.0] for k in self.NAMES}
-
-        def timed(name, fn):
-            def call(comm, x):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                out = fn(comm, x)
-                torch.cuda.synchronize()
-                self.calls[name][0] += 1
-                self.calls[name][1] += time.perf_counter() - t
-                return out
-            return call
-        for name, fn in self.saved.items():
-            setattr(SH.Comm, name, timed(name, fn))
-        return self
-
-    def __exit__(self, *exc):
-        for name, fn in self.saved.items():
-            setattr(SH.Comm, name, fn)
-
-
 def first_of_shape(min_lanes: int):
     """A Capture filter: the first mont_mul call of each operand shape
     with at least min_lanes lanes."""
@@ -1884,28 +1773,12 @@ HOST11D_LOG2 = 25            # 11d: MNT4753 d + 1 = 2^25, rows on the host
 MSM_LAP = "MSMs (device Pippenger)"
 
 
-def scans_per_pass(points: int, chunk: int, c: int) -> int:
-    """Scan launches of one msm_window_sums pass over `points` points:
-    768 / c windows, as many a launch as ops/msm.py fits."""
-    nwin = 768 // c
-    wb = M._fit_block(nwin, min(max(1, M.SCAN_LANES // (points // chunk)),
-                                max(1, M.SCAN_POINTS // points)))
-    return nwin // wb
-
-
 def default_blocks(log2: int) -> dict:
     """Per group configuration of an unforced MNT4753 proof at d + 1 =
     2^log2: (blocks, points a block, scan launches), the blocks of
-    STREAM_BLOCK points that ops/msm.block_grid cuts."""
-    d1 = 1 << log2
-    n_g1 = 2 * (d1 + 1) + (d1 - 1) + (d1 - 1)
-    chunk, c, _ = GP.resolve_msm_cfg(d1, torch.device(DEV))
-    out = {}
-    for cfg, n in ((0, n_g1), (1, d1 + 1)):
-        nblk, per = M.block_grid(GP.round_up(n, chunk), chunk,
-                                 GP.STREAM_BLOCK)
-        out[cfg] = (nblk, per, nblk * scans_per_pass(per, chunk, c))
-    return out
+    STREAM_BLOCK points that ops/msm.block_grid cuts (the grid of
+    prove_at_scale.rank_grid at world 1: one card walks the same)."""
+    return {cfg: g[1:] for cfg, g in PAS.rank_grid(log2, 1, 0).items()}
 
 
 def check_blocks(what: str, in_proof: dict, blocks: dict) -> None:
@@ -2046,9 +1919,12 @@ def host_resident_phase(run4) -> dict:
 
 
 def rank_host_resident(rank, files6) -> dict:
-    """11c: prove_sharded with each rank's G1 rows in host memory."""
-    return _rank_proof(rank, "MNT6753", *files6,
-                       block_points=SHARDED11_BLOCK, resident_bytes=0)
+    """11c: prove_sharded with each rank's G1 rows in host memory, with
+    what each streamed MSM got (PAS.StreamedWidths)."""
+    with PAS.StreamedWidths() as widths:
+        r = _rank_proof(rank, "MNT6753", *files6,
+                        block_points=SHARDED11_BLOCK, resident_bytes=0)
+    return dict(r, streamed=widths.calls)
 
 
 def host_sharded_phase(run6) -> list:
@@ -2069,6 +1945,13 @@ def host_sharded_phase(run6) -> list:
                          PATH_KERNELS)
         if n_up == 0:
             raise AssertionError(f"11c rank {r['rank']}: no upload")
+        faults = PAS.grid_faults(r["streamed"], SHARDED11_BLOCK, 2)
+        if faults:
+            raise AssertionError(f"11c rank {r['rank']}: {faults}")
+        log(f"11c rank {r['rank']}: streamed MSMs "
+            + ", ".join(f"cfg {k['cfg']} keys, rows and segment ids at "
+                        f"{k['rows']}, blocks of {k['block']}"
+                        for k in r["streamed"]) + ": nothing padded again")
         if r["sha"] != run6["sha"]:
             raise AssertionError(f"11c rank {r['rank']}: the proof differs "
                                  f"from phase 4's")

@@ -215,19 +215,25 @@ def resolve_resident_bytes(resident_bytes, device: torch.device) -> float:
     return resident_bytes
 
 
-def resolve_block_points(block_points, n_pad: int, resident: bool):
+def resolve_block_points(block_points, n_pad: int, resident: bool,
+                         ndev: int = 1):
     """Points per streamed MSM block, or None for one pass: the argument
     (0 = one pass), else $GROTH16_MSM_BLOCK_POINTS (0 = one pass; as
     tpu_prover.py:331-335), else STREAM_BLOCK past STREAM_ABOVE rows.
-    Host-resident rows always go in blocks of at most STREAM_BLOCK."""
+    Host-resident rows always go in blocks of at most STREAM_BLOCK.
+    Over ndev ranks of n_pad rows each (parallel/prover.py) the block is
+    global, STREAM_BLOCK * ndev, as the JAX package's sharded prover
+    takes it (parallel/prover.py:166-176 there)."""
     if block_points is None:
         env = os.environ.get("GROTH16_MSM_BLOCK_POINTS")
         if env is not None:
             block_points = int(env)
         else:
-            block_points = STREAM_BLOCK if n_pad > STREAM_ABOVE else 0
+            block_points = STREAM_BLOCK * ndev if n_pad > STREAM_ABOVE \
+                else 0
     if not resident:
-        block_points = min(block_points or STREAM_BLOCK, STREAM_BLOCK)
+        cap = STREAM_BLOCK * ndev
+        block_points = min(block_points or cap, cap)
     return block_points or None
 
 

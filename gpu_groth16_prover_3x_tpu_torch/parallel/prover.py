@@ -29,26 +29,19 @@ import torch
 
 from ..curves.constants import CurveParams
 from ..host import ec as host_ec
-from ..models.gpu_prover import (PI1, STREAM_ABOVE, STREAM_BLOCK,
-                                 DeviceInput, DeviceParams, from_monty_keys,
-                                 pad_rows, resolve_msm_cfg,
+from ..models.gpu_prover import (PI1, DeviceInput, DeviceParams,
+                                 from_monty_keys, pad_keys,
+                                 resolve_block_points, resolve_msm_cfg,
                                  resolve_resident_bytes, round_up,
-                                 stage_rows, sync_device)
+                                 stage_cols, stage_rows, sync_device)
 from ..ops import limbs as L
 from ..ops.ec import get_curve_ops
-from ..ops.msm import finalize_windows
+from ..ops.msm import finalize_windows, grid_points
 from ..ops.ntt import compute_h
 from ..utils.profiling import enter_block, leave_block
 from . import multihost
-from .sharded import (Comm, ShardedNttPlan, sharded_msm_window_sums,
-                      sharded_ntt)
-
-
-def _cols(rows: np.ndarray, count: int, device) -> torch.Tensor:
-    """(k, 24) word rows -> (24, count) on the device, zero-padded."""
-    out = np.zeros((L.NWORDS, count), dtype=np.int32)
-    out[:, :rows.shape[0]] = rows.T
-    return torch.from_numpy(out).to(device)
+from .sharded import (Comm, ShardedNttPlan, rank_block,
+                      sharded_msm_window_sums, sharded_ntt)
 
 
 def prove_sharded(curve: CurveParams, params: DeviceParams,
@@ -63,14 +56,18 @@ def prove_sharded(curve: CurveParams, params: DeviceParams,
     "cpu".  The MSM configuration is models/gpu_prover.resolve_msm_cfg
     on the witness slice, the same on every rank, so the ranks' window
     sums combine.  block_points: stream each MSM in global blocks of that
-    many points (sharded_msm_window_sums); by default only past
-    STREAM_ABOVE rows a rank, in blocks of STREAM_BLOCK a rank.
+    many points (sharded_msm_window_sums); else
+    $GROTH16_MSM_BLOCK_POINTS (0 = one pass), else only past
+    STREAM_ABOVE rows a rank, in blocks of STREAM_BLOCK a rank
+    (models/gpu_prover.resolve_block_points over D ranks).
     resident_bytes: as ProverSession's, on the rank's G1 and B2 rows;
     past it the rank's G1 rows stay in host memory and go up a block at
     a time (ops/msm.msm_window_sums_streamed), in global blocks of at
     most STREAM_BLOCK a rank, while its B2 rows stay on the device (as in
-    the JAX package, parallel/prover.py:260-290).  Proof bytes depend on
-    none of these."""
+    the JAX package, parallel/prover.py:260-290).  Each rank's rows, keys
+    and segment ids are filled once, at the width of its block grid
+    (rank_block, ops/msm.grid_points), so the MSMs pad nothing again.
+    Proof bytes depend on none of these."""
     t0 = time.time()
     comm = Comm(group)
     D, rank = comm.size, comm.rank
@@ -103,17 +100,16 @@ def prove_sharded(curve: CurveParams, params: DeviceParams,
     n2_pad = round_up(hi - lo, chunk_s)
     row_bytes = 4 * (n_pad * params.A.shape[1] + n2_pad * params.B2.shape[1])
     resident = row_bytes <= resolve_resident_bytes(resident_bytes, dev)
+    block_points = resolve_block_points(block_points, n_pad, resident, D)
+    blk = rank_block(block_points, D, chunk_s)
+    n_pad = grid_points(n_pad, chunk_s, blk)
+    n2_pad = grid_points(n2_pad, chunk_s, blk)
     g1_rows = stage_rows(parts, n_pad, dev, resident)
     sizes = [len(a) for a in parts]
     sizes[-1] += n_pad - n_tot                   # padding joins MSM 3
     seg = torch.from_numpy(np.repeat(np.arange(4), sizes)
                            .astype(np.int64)).to(dev)
-    b2_rows = torch.from_numpy(pad_rows(params.B2[lo:hi], n2_pad)).to(dev)
-    if block_points is None and n_pad > STREAM_ABOVE:
-        block_points = STREAM_BLOCK * D
-    if not resident:
-        block_points = min(block_points or STREAM_BLOCK * D,
-                           STREAM_BLOCK * D)
+    b2_rows = stage_rows([params.B2[lo:hi]], n2_pad, dev, True)
     sync_device(dev)
     leave_block("stage params (host->device)")
     where = "on the device" if resident else "in host memory"
@@ -121,9 +117,11 @@ def prove_sharded(curve: CurveParams, params: DeviceParams,
         f"[{lo}, {hi}), domain [{hlo}, {hlo + nl}))")
 
     enter_block("stage inputs (host->device)")
-    ca, cb, cc = (_cols(a[hlo:hlo + nl], nl, dev)
+    ca, cb, cc = (stage_cols(a[hlo:hlo + nl], dev)
                   for a in (inputs.ca, inputs.cb, inputs.cc))
-    w_mont = _cols(inputs.w_mont[lo:hi], wl, dev)
+    w_mont = stage_cols(inputs.w_mont[lo:hi], dev)
+    if hi - lo < wl:                             # the last rank's zeros
+        w_mont = torch.nn.functional.pad(w_mont, (0, wl - (hi - lo)))
     sync_device(dev)
     leave_block("stage inputs (host->device)")
 
@@ -144,12 +142,10 @@ def prove_sharded(curve: CurveParams, params: DeviceParams,
 
     enter_block("MSMs (points-sharded Pippenger)")
     na = hi - lo
-    g1_keys = torch.cat([
-        w_keys[:, :na], w_keys[:, :na], w_keys[:, l_lo - lo:l_hi - lo],
-        h_std[:, :h_hi - hlo],
-        w_keys.new_zeros((L.NWORDS, n_pad - n_tot))], 1)
-    b2_keys = torch.cat([w_keys[:, :na],
-                         w_keys.new_zeros((L.NWORDS, n2_pad - na))], 1)
+    g1_keys = pad_keys([w_keys[:, :na], w_keys[:, :na],
+                        w_keys[:, l_lo - lo:l_hi - lo],
+                        h_std[:, :h_hi - hlo]], n_pad)
+    b2_keys = pad_keys([w_keys[:, :na]], n2_pad)
     del w_keys, h_std
     ws_g1 = sharded_msm_window_sums(g1, g1_keys, g1_rows, chunk_s, c, seg,
                                     4, signed, group,

@@ -61,24 +61,28 @@ class Comm:
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """x (D, ...): block j goes to rank j; returns (D, ...) whose
-        block j came from rank j."""
-        if self.group is None:
+        block j came from rank j.  One rank, in a group or none, gets x
+        itself: no exchange and no copy."""
+        if self.group is not None:
+            opcount.add("all_to_all_bytes",
+                        x.nbytes // self.size * (self.size - 1))
+        if self.size == 1:
             return x
         src = self._host(x)
         got = torch.empty_like(src)
         dist.all_to_all_single(got, src, group=self.group)
-        opcount.add("all_to_all_bytes",
-                    x.nbytes // self.size * (self.size - 1))
         return got.to(x.device)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """x (...) -> (D, ...), stacked in rank order."""
-        if self.group is None:
+        """x (...) -> (D, ...), stacked in rank order (one rank: a view
+        of x)."""
+        if self.group is not None:
+            opcount.add("all_gather_bytes", x.nbytes * (self.size - 1))
+        if self.size == 1:
             return x[None]
         src = self._host(x)
         parts = [torch.empty_like(src) for _ in range(self.size)]
         dist.all_gather(parts, src, group=self.group)
-        opcount.add("all_gather_bytes", x.nbytes * (self.size - 1))
         return torch.stack(parts).to(x.device)
 
 
@@ -102,6 +106,16 @@ def _combine_window_sums(cops: CurveOps, stacked: torch.Tensor):
     return arr[0]
 
 
+def rank_block(block_points, ndev: int, chunk_s: int):
+    """A rank's points of a global block of block_points over ndev ranks,
+    a multiple of chunk_s (None: one pass).  parallel/prover.py stages
+    each rank's rows and keys at this block's grid (ops/msm.grid_points),
+    so the streamed MSM never pads them again."""
+    if block_points is None:
+        return None
+    return max(chunk_s, block_points // ndev // chunk_s * chunk_s)
+
+
 def sharded_msm_window_sums(cops: CurveOps, keys_l, rows_l,
                             chunk_s: int = DEFAULT_CHUNK, c: int = 16,
                             seg_l=None, num_msms: int = 1,
@@ -118,15 +132,14 @@ def sharded_msm_window_sums(cops: CurveOps, keys_l, rows_l,
     per-rank sums (D, 3*deg, 24, nwin*num_msms).
 
     block_points streams in global blocks of that many points: global
-    block b is every rank's b-th block of block_points / D points; blocks
-    add by MSM linearity on each rank (ops/msm.msm_window_sums_streamed)
-    and the ranks' sums are gathered once."""
+    block b is every rank's b-th block of rank_block points; blocks add
+    by MSM linearity on each rank (ops/msm.msm_window_sums_streamed) and
+    the ranks' sums are gathered once."""
     comm = Comm(group)
-    blk = None
-    if block_points is not None:
-        blk = max(chunk_s, block_points // comm.size // chunk_s * chunk_s)
     ws = msm_window_sums_streamed(cops, keys_l, rows_l, chunk_s, c, seg_l,
-                                  num_msms, blk, signed)
+                                  num_msms,
+                                  rank_block(block_points, comm.size,
+                                             chunk_s), signed)
     stacked = comm.all_gather(ws)
     return _combine_window_sums(cops, stacked) if combine else stacked
 

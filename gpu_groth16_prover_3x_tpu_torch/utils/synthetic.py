@@ -187,9 +187,19 @@ def read_proof(path: str, curve):
     return a, b, c
 
 
+def h_log(ks, logs, h_part, lo: int) -> int:
+    """The H query's log over the standard-domain H words h_part, the
+    coefficients [lo, lo + width) of H (a rank's domain slice; those
+    past the query's d rows add nothing): the slices' logs sum to the
+    whole H's."""
+    count, shift = logs["H"]
+    return tiled_log(ks, h_part[:, :max(0, count - lo)], shift + lo)
+
+
 def known_proof(curve, ks, logs, w, h_std, r_in: int):
     """(A, B, C) affine from the known logs: w the (24, m + 1) Montgomery
-    witness words, h_std the (24, >= d) standard-domain H words.  The
+    witness words, h_std the (24, >= d) standard-domain H words, or H's
+    log as an integer (h_log summed over a sharded proof's slices).  The
     logs are linear in the scalars, so the witness's class sums are taken
     on its Montgomery words and divided by R once."""
     p = curve.fr.p
@@ -201,7 +211,7 @@ def known_proof(curve, ks, logs, w, h_std, r_in: int):
 
     sA, sB1, sB2 = (log_of(q, w) * rinv for q in ("A", "B1", "B2"))
     sL = log_of("L", w, 2) * rinv
-    sH = log_of("H", h_std)
+    sH = h_std if isinstance(h_std, int) else h_log(ks, logs, h_std, 0)
     hg1, hg2 = HE.g1_group(curve), HE.g2_group(curve)
     g1, g2 = HE.g1_generator(curve), HE.g2_generator(curve)
     want = (hg1.to_affine(hg1.mul(sA % p, g1)),

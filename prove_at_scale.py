@@ -1,7 +1,7 @@
 """MNT4753 proofs at the sizes users run, on one card, with the device
 and host memory at every phase boundary.
 
-    python3 prove_at_scale.py [LOG2 ...]          (default: 24 25)
+    python3 prove_at_scale.py [LOG2 | wD-LOG2 ...]     (default: 24 25)
 
 LOG2 is log2(d + 1).  Each size runs in child processes of its own,
 unforced (no resident_bytes, block_points or environment switch):
@@ -25,14 +25,30 @@ unforced (no resident_bytes, block_points or environment switch):
         (utils/synthetic.input_values) and proved: the rows stay in host
         memory and go up a block at a time (chip_smoke.py phase 11d).
 
+wD-LOG2 (SHARDED: w1-24, w1-25, w2-24) is parallel/prover.prove_sharded
+over D ranks that the child spawns (parallel/multihost.launch_local; nccl
+at world 1, gloo for two ranks on one card, which nccl refuses), each
+rank loading the whole key as the README's recipe does: at 2^24 from
+synthetic files the child writes, at 2^25 made in memory in the rank
+(params_arrays, input_values).  Each rank prints its device memory in
+use and peak, the card's used memory and the host RSS of the child's
+process tree at each phase boundary, then its laps, collectives (calls,
+seconds, bytes sent), uploads of host rows, launches, bucket-scan
+launches per group configuration against the block grid's count, and
+whether A, B and C equal the known logs (H's log summed over the ranks'
+domain slices).  Every rank must return the same proof.
+
 The parent prints the card's name and power limit, `free -g` and `df -h`
-of the work directory, and watches each child's resident set: a child
-whose resident set passes HOST_MARGIN below the host's available memory
-is stopped, and the parent names the phase it was in, so the host is
-never driven into swapping or its out-of-memory killer.  The child prints
-at each phase boundary of the prover the device memory in use and its
-peak (torch.cuda) and the host's resident set and its peak (VmRSS of
-/proc/self/status, getrusage's ru_maxrss); then its laps, and whether A,
+of the work directory, and watches each child's process tree (the child
+and the ranks it spawns): a tree whose summed resident set passes
+HOST_MARGIN below the host's available memory is stopped, and the parent
+names the phase it was in, so the host is never driven into swapping or
+its out-of-memory killer.  The parent also samples the card's used
+memory (nvidia-smi), which with two ranks on the card is more than either
+rank's peak.  The child prints at each phase boundary of the prover the
+device memory in use and its peak (torch.cuda), the card's used memory,
+the host's resident set and its peak (VmRSS of /proc/self/status,
+getrusage's ru_maxrss) and its process tree's; then its laps, and whether A,
 B and C equal the known logs, with H taken from the proof's own pipeline
 (utils/synthetic.known_proof).  Its last line is one JSON object; a
 child that fails exits non-zero, and so does the parent.  The parent also
@@ -48,6 +64,7 @@ import os
 import re
 import resource
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -60,6 +77,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HOST_MARGIN = 6 << 30       # bytes of available host memory left unused
 CHILD_TIMEOUT = 1500        # seconds a child may take
 SEED = 20261017
+# name: (ranks, log2(d + 1), backend, keys from files (else in memory))
+SHARDED = {"w1-24": (1, 24, "nccl", True),
+           "w1-25": (1, 25, "nccl", False),
+           "w2-24": (2, 24, "gloo", True)}
 
 
 def status_bytes(pid, key: str) -> int:
@@ -84,21 +105,80 @@ def available_bytes() -> int:
     raise RuntimeError("no MemAvailable in /proc/meminfo")
 
 
+def tree_pids(root: int) -> list:
+    """root and every process descended from it, by the parent pid of
+    each /proc/<pid>/stat (the ranks that launch_local spawns are the
+    child's children, the watcher's grandchildren)."""
+    children = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue        # ended while we read
+        children.setdefault(ppid, []).append(int(name))
+    out, todo = [], [root]
+    while todo:
+        pid = todo.pop()
+        out.append(pid)
+        todo += children.get(pid, [])
+    return out
+
+
+def tree_rss_bytes(root: int) -> int:
+    """The summed resident set of root's process tree."""
+    total = 0
+    for pid in tree_pids(root):
+        try:
+            total += status_bytes(pid, "VmRSS")
+        except OSError:
+            pass
+    return total
+
+
+def kill_tree(root: int) -> None:
+    """SIGKILL root and every process descended from it."""
+    for pid in tree_pids(root):
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            pass
+
+
+def card_used_bytes():
+    """The card's used memory as nvidia-smi reads it (every process on
+    it, CUDA contexts included), or None where it does not run."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=10).stdout
+        return int(out.split()[0]) << 20
+    except (OSError, ValueError, IndexError, subprocess.TimeoutExpired):
+        return None
+
+
 # -- the children -------------------------------------------------------------
 
 class Child:
-    """What every child does: a mark of the device and host memory at each
-    phase boundary of the prover, and a host copy of H each time the
-    prover computes it (the known logs of C are taken with the proof's
-    own H)."""
+    """What every child (and every rank of a sharded run) does: a mark of
+    the device and host memory at each phase boundary of the prover
+    module `target` (models/gpu_prover by default), and a host copy of H
+    each time it computes it (the known logs of C are taken with the
+    proof's own H).  A mark's host figures are this process's and those
+    of tree_root's process tree."""
 
-    def __init__(self):
+    def __init__(self, target=None, tree_root=None, prefix: str = ""):
         import torch
         sys.path.insert(0, ROOT)
         from gpu_groth16_prover_3x_tpu_torch.models import gpu_prover as GP
         self.torch, self.GP = torch, GP
+        self.tree_root, self.prefix = tree_root or os.getpid(), prefix
         self.marks, self.h_std = [], []
-        leave, compute_h = GP.leave_block, GP.compute_h
+        target = target or GP
+        leave, compute_h = target.leave_block, target.compute_h
 
         def leave_and_mark(name):
             leave(name)
@@ -108,20 +188,25 @@ class Child:
             out = compute_h(*args)
             self.h_std.append(out[1].cpu().numpy())
             return out
-        GP.leave_block, GP.compute_h = leave_and_mark, keep_h
+        target.leave_block, target.compute_h = leave_and_mark, keep_h
         torch.cuda.reset_peak_memory_stats()
 
     def mark(self, label: str) -> None:
         torch = self.torch
+        free, total = torch.cuda.mem_get_info()
         m = dict(label=label, device_bytes=torch.cuda.memory_allocated(),
                  device_peak_bytes=torch.cuda.max_memory_allocated(),
+                 card_used_bytes=total - free,
                  host_rss_bytes=status_bytes("self", "VmRSS"),
-                 host_peak_bytes=peak_rss_bytes())
+                 host_peak_bytes=peak_rss_bytes(),
+                 tree_rss_bytes=tree_rss_bytes(self.tree_root))
         self.marks.append(m)
-        print(f"[{label}] device {m['device_bytes'] / 2**30:.2f} GiB in "
-              f"use, peak {m['device_peak_bytes'] / 2**30:.2f} GiB; host "
-              f"RSS {m['host_rss_bytes'] / 2**30:.2f} GiB, peak "
-              f"{m['host_peak_bytes'] / 2**30:.2f} GiB", flush=True)
+        print(f"{self.prefix}[{label}] device {m['device_bytes'] / 2**30:.2f}"
+              f" GiB in use, peak {m['device_peak_bytes'] / 2**30:.2f} GiB, "
+              f"card used {m['card_used_bytes'] / 2**30:.2f} GiB; host RSS "
+              f"{m['host_rss_bytes'] / 2**30:.2f} GiB, peak "
+              f"{m['host_peak_bytes'] / 2**30:.2f} GiB, process tree "
+              f"{m['tree_rss_bytes'] / 2**30:.2f} GiB", flush=True)
 
     def finish(self, res: dict) -> int:
         """Print the child's JSON line; exit code 0 when res["ok"]."""
@@ -329,12 +414,357 @@ def table_child(step: str, workdir: str) -> int:
     return ch.finish(res)
 
 
+# -- sharded runs: ranks spawned by the child ------------------------------
+
+def scans_per_pass(points: int, chunk: int, c: int) -> int:
+    """Bucket-scan launches of one msm_window_sums pass over `points`
+    points: 768 / c windows, as many a launch as ops/msm.py fits."""
+    from gpu_groth16_prover_3x_tpu_torch.ops import msm as M
+    nwin = 768 // c
+    wb = M._fit_block(nwin, min(max(1, M.SCAN_LANES // (points // chunk)),
+                                max(1, M.SCAN_POINTS // points)))
+    return nwin // wb
+
+
+def rank_grid(log2: int, world: int, rank: int) -> dict:
+    """The block grid an unforced rank streams each MSM over, worked out
+    from the sizes alone: per group configuration (0 G1, 1 B2), (rows,
+    blocks, points a block, scan launches), blocks of STREAM_BLOCK
+    (ops/msm.block_grid) on the rank's rows rounded to its chunk."""
+    import torch
+    from gpu_groth16_prover_3x_tpu_torch.models import gpu_prover as GP
+    from gpu_groth16_prover_3x_tpu_torch.ops import msm as M
+    d1 = 1 << log2
+    d, m = d1 - 1, d1
+    wl = -(-(m + 1) // world)
+    lo, hi = min(rank * wl, m + 1), min((rank + 1) * wl, m + 1)
+    nl = d1 // world
+    hlo = rank * nl
+    n_l = max(hi, GP.PI1) - max(lo, GP.PI1)
+    n_g1 = 2 * (hi - lo) + n_l + min(hlo + nl, d) - hlo
+    chunk, c, _ = GP.resolve_msm_cfg(wl, torch.device("cuda"))
+    if GP.round_up(n_g1, chunk) <= GP.STREAM_ABOVE:
+        raise ValueError(f"2^{log2} over {world} ranks is not streamed")
+    out = {}
+    for cfg, n in ((0, n_g1), (1, hi - lo)):
+        nblk, per = M.block_grid(GP.round_up(n, chunk), chunk,
+                                 GP.STREAM_BLOCK)
+        out[cfg] = (n, nblk, per, nblk * scans_per_pass(per, chunk, c))
+    return out
+
+
+class KernelTimer:
+    """CUDA events around calls of kernel wrappers, summed per label and
+    group configuration.  `targets` maps a label to (module, attribute):
+    the callers look the wrapper up as that module's attribute at each
+    call (ops/msm.py its own ec_add, ec_dbl and msm_scan; ops/straus.py
+    and models/preprocess_device.py group_kernels.ec_add and
+    ec_mixed_add), so only their calls are timed.  The events enclose the
+    wrapper, so a sum includes its small tensor conversions beside the
+    kernel."""
+
+    def __init__(self, targets: dict):
+        self.targets = targets
+        self.events = []
+        self.saved = {}
+
+    def _timed(self, label, fn):
+        import torch
+
+        def call(cops, *args, **kwargs):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(cops, *args, **kwargs)
+            e1.record()
+            self.events.append((label, cops.cfg, e0, e1))
+            return out
+        return call
+
+    def __enter__(self):
+        for label, (mod, attr) in self.targets.items():
+            self.saved[label] = getattr(mod, attr)
+            setattr(mod, attr, self._timed(label, self.saved[label]))
+        return self
+
+    def __exit__(self, *exc):
+        for label, fn in self.saved.items():
+            mod, attr = self.targets[label]
+            setattr(mod, attr, fn)
+
+    def totals(self) -> dict:
+        """(name, cfg) -> (calls, summed device ms)."""
+        import torch
+        torch.cuda.synchronize()
+        out = {}
+        for name, cfg, e0, e1 in self.events:
+            calls, ms = out.get((name, cfg), (0, 0.0))
+            out[name, cfg] = (calls + 1, ms + e0.elapsed_time(e1))
+        return out
+
+
+class UploadTimer:
+    """CUDA events around each call of ops/msm.upload_block, recorded on
+    the stream it runs on (the copy stream of the host-resident rows):
+    totals() gives (uploads, summed device ms, bytes); `stray` counts the
+    uploads whose source was not pinned or that ran on the default
+    stream."""
+
+    def __enter__(self):
+        import torch
+        from gpu_groth16_prover_3x_tpu_torch.ops import msm as M
+        self.M, self.saved = M, M.upload_block
+        self.events = []
+        self.stray = 0
+
+        def timed(pinned, device):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            if not pinned.is_pinned() or (torch.cuda.current_stream(device)
+                                          == torch.cuda.default_stream(
+                                              device)):
+                self.stray += 1
+            e0.record()
+            out = self.saved(pinned, device)
+            e1.record()
+            self.events.append((e0, e1, pinned.numel() * 4))
+            return out
+        M.upload_block = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.M.upload_block = self.saved
+
+    def totals(self):
+        import torch
+        torch.cuda.synchronize()
+        return (len(self.events),
+                sum(e0.elapsed_time(e1) for e0, e1, _ in self.events),
+                sum(nb for _, _, nb in self.events))
+
+
+class CollectiveTimer:
+    """Host clock around each exchange of parallel/sharded.Comm, with the
+    card drained before and after, so a sum is the exchange alone (on
+    gloo its staging copies through host memory included): name ->
+    [calls, seconds]."""
+
+    NAMES = ("all_to_all", "all_gather")
+
+    def __enter__(self):
+        import torch
+        from gpu_groth16_prover_3x_tpu_torch.parallel import sharded as SH
+        self.Comm = SH.Comm
+        self.saved = {k: getattr(SH.Comm, k) for k in self.NAMES}
+        self.calls = {k: [0, 0.0] for k in self.NAMES}
+
+        def timed(name, fn):
+            def call(comm, x):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(comm, x)
+                torch.cuda.synchronize()
+                self.calls[name][0] += 1
+                self.calls[name][1] += time.perf_counter() - t
+                return out
+            return call
+        for name, fn in self.saved.items():
+            setattr(SH.Comm, name, timed(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.Comm, name, fn)
+
+
+class StreamedWidths:
+    """The streamed MSMs that parallel/sharded.sharded_msm_window_sums
+    hands a rank's rows to (ops/msm.msm_window_sums_streamed): per call
+    its group configuration, the widths of its keys, rows and segment
+    ids, its chunk, the block it walks and where its rows lay."""
+
+    def __enter__(self):
+        from gpu_groth16_prover_3x_tpu_torch.parallel import sharded as SH
+        self.SH, self.saved, self.calls = SH, SH.msm_window_sums_streamed, []
+
+        def keep(cops, keys, rows, chunk_s, c, seg, num, block, *args):
+            self.calls.append(dict(
+                cfg=cops.cfg, keys=keys.shape[1], rows=rows.shape[0],
+                seg=None if seg is None else seg.shape[0], chunk=chunk_s,
+                block=block, rows_on="host" if isinstance(rows, np.ndarray)
+                else "device"))
+            return self.saved(cops, keys, rows, chunk_s, c, seg, num, block,
+                              *args)
+        SH.msm_window_sums_streamed = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.SH.msm_window_sums_streamed = self.saved
+
+
+def grid_faults(calls: list, block_points: int, ndev: int) -> list:
+    """What a rank's streamed MSMs (StreamedWidths.calls, one G1 and one
+    B2) break of rows staged once: keys, rows and segment ids of one
+    width that their block grid covers exactly, walked in the rank's
+    share of the global block_points (nothing padded again)."""
+    from gpu_groth16_prover_3x_tpu_torch.ops import msm as M
+    from gpu_groth16_prover_3x_tpu_torch.parallel import sharded as SH
+    out = [] if len(calls) == 2 else [f"{len(calls)} streamed MSMs, not 2"]
+    for k in calls:
+        nblk, per = M.block_grid(k["rows"], k["chunk"], k["block"])
+        if k["keys"] != k["rows"] or k["seg"] not in (None, k["rows"]) or \
+                nblk * per != k["rows"] or \
+                k["block"] != SH.rank_block(block_points, ndev, k["chunk"]):
+            out.append(f"cfg {k['cfg']}: keys {k['keys']}, rows {k['rows']}"
+                       f", segment ids {k['seg']}, block {k['block']}: the "
+                       f"grid is {nblk} x {per}")
+    return out
+
+
+def sharded_rank(rank: int, name: str, workdir: str) -> dict:
+    """One rank of the SHARDED run `name`: the whole key and input loaded
+    (from workdir's files, or made in memory from the seed), then
+    prove_sharded, unforced, under the timers and StreamedWidths; A, B
+    and C against the known logs, H's log summed over every rank's
+    domain slice."""
+    world, log2, _, files = SHARDED[name]
+    from gpu_groth16_prover_3x_tpu_torch.parallel import prover as PP
+    ch = Child(PP, os.getppid(), f"rank {rank}/{world} ")
+    torch, GP = ch.torch, ch.GP
+    import torch.distributed as dist
+    from gpu_groth16_prover_3x_tpu_torch.curves.constants import MNT4753
+    from gpu_groth16_prover_3x_tpu_torch.ops import group_kernels as GK
+    from gpu_groth16_prover_3x_tpu_torch.ops import mont_mul as MM
+    from gpu_groth16_prover_3x_tpu_torch.ops import msm as M
+    from gpu_groth16_prover_3x_tpu_torch.utils import opcount, profiling
+    from gpu_groth16_prover_3x_tpu_torch.utils import synthetic as SY
+
+    curve = MNT4753
+    t0 = time.time()
+    if files:
+        params = GP.load_params(os.path.join(
+            workdir, f"{curve.name}-parameters"), curve)
+        inputs = GP.load_input(os.path.join(workdir, f"{curve.name}-input"),
+                               curve, params.d, params.m)
+    else:
+        params = SY.params_arrays(curve, log2)
+        inputs = SY.input_arrays(SY.input_values(
+            curve, log2, np.random.default_rng(SEED + log2)))
+    inputs_s = time.time() - t0
+    ch.mark("key and input in memory")
+    grid = rank_grid(log2, world, rank)
+    counters = {"mont_mul": MM.MONT_MUL, "ec_add": GK.EC_ADD,
+                "ec_dbl": GK.EC_DBL, "msm_scan": M.MSM_SCAN}
+    if world > 1:
+        dist.barrier()          # start the proofs together
+    for k in counters.values():
+        k.launches = 0
+    profiling.clear_laps()
+    t1 = time.time()
+    with CollectiveTimer() as coll, UploadTimer() as up, \
+            KernelTimer({"msm_scan": (M, "msm_scan")}) as scan, \
+            StreamedWidths() as widths, opcount.collect() as tally:
+        proof = PP.prove_sharded(curve, params, inputs, verbose=True)
+        torch.cuda.synchronize()
+    wall = time.time() - t1
+    launches = {n: k.launches for n, k in counters.items()}
+    laps = profiling.last_laps()
+    uploads = up.totals()
+    scans = {cfg: n for (_, cfg), (n, _) in scan.totals().items()}
+    del params
+    h = ch.h_std[0]
+    h_logs = [None] * world
+    dist.all_gather_object(h_logs, SY.h_log(SY.KS, SY.query_logs(log2), h,
+                                            rank * h.shape[1]))
+    want = SY.known_proof(curve, SY.KS, SY.query_logs(log2),
+                          inputs.w_mont.T, sum(h_logs), inputs.r)
+    ok = proof == want
+    print(f"rank {rank}/{world} MNT4753 2^{log2}: prove_sharded {wall:.2f} s"
+          f" (key and input {inputs_s:.1f} s), A, B, C "
+          f"{'equal' if ok else 'DIFFER FROM'} the known logs; launches "
+          f"{launches}; scans {scans}, grid {grid}; collectives "
+          f"{coll.calls}; uploads {uploads}", flush=True)
+    return dict(rank=rank, world=world, ok=ok, proof=proof, wall_s=wall,
+                inputs_s=inputs_s, laps=laps, launches=launches,
+                scans=scans, grid=grid, msms=widths.calls,
+                collectives=coll.calls, uploads=uploads,
+                sent_bytes={k: tally.get(k, 0) for k in (
+                    "all_to_all_bytes", "all_gather_bytes")},
+                peak_device_bytes=torch.cuda.max_memory_allocated(),
+                peak_host_bytes=peak_rss_bytes(), marks=ch.marks)
+
+
+def rank_faults(r: dict) -> list:
+    """What a rank's result breaks of the run's checks: the known logs,
+    a launch of each kernel, the grid's scan launches, rows and keys
+    staged once at the grid of blocks of STREAM_BLOCK a rank."""
+    from gpu_groth16_prover_3x_tpu_torch.models.gpu_prover import \
+        STREAM_BLOCK
+    out = [] if r["ok"] else ["A, B, C differ from the known logs"]
+    out += [f"{k} never launched" for k, v in r["launches"].items() if not v]
+    for cfg, (_, nblk, _, want) in r["grid"].items():
+        if r["scans"].get(cfg, 0) != want:
+            out.append(f"cfg {cfg}: {r['scans'].get(cfg, 0)} scan launches,"
+                       f" the grid's {nblk} blocks give {want}")
+    return out + grid_faults(r["msms"], STREAM_BLOCK * r["world"],
+                             r["world"])
+
+
+def sharded_child(name: str, workdir: str) -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("prove_at_scale: no CUDA card", file=sys.stderr)
+        return 1
+    world, log2, backend, files = SHARDED[name]
+    sys.path.insert(0, ROOT)
+    from gpu_groth16_prover_3x_tpu_torch.curves.constants import MNT4753
+    from gpu_groth16_prover_3x_tpu_torch.ops import build
+    from gpu_groth16_prover_3x_tpu_torch.parallel import multihost
+    from gpu_groth16_prover_3x_tpu_torch.utils import native
+    from gpu_groth16_prover_3x_tpu_torch.utils import synthetic as SY
+
+    res = dict(run=name, world=world, log2=log2, backend=backend)
+    t0 = time.time()
+    if files:
+        SY.write_synthetic(MNT4753, log2, workdir,
+                           np.random.default_rng(SEED + log2))
+    res["files_s"] = time.time() - t0
+    t0 = time.time()
+    build.library()             # once, before the ranks load them
+    native.available()
+    res["kernel_build_s"] = time.time() - t0
+    t0 = time.time()
+    ranks = multihost.launch_local(sharded_rank, world, (name, workdir),
+                                   backend=backend, timeout=CHILD_TIMEOUT)
+    res["wall_s"] = time.time() - t0
+    same = all(r["proof"] == ranks[0]["proof"] for r in ranks)
+    faults = {r["rank"]: rank_faults(r) for r in ranks}
+    for r in ranks:
+        print(f"rank {r['rank']}/{world}: laps {r['laps']}; peak device "
+              f"{r['peak_device_bytes'] / 2**30:.2f} GiB; sent "
+              f"{r['sent_bytes']}; streamed MSMs {r['msms']}; faults "
+              f"{faults[r['rank']] or 'none'}", flush=True)
+    res["ok"] = same and not any(faults.values())
+    res["peak_card_used_marks_bytes"] = max(
+        m["card_used_bytes"] for r in ranks for m in r["marks"])
+    print(f"{name}: MNT4753 2^{log2} over {world} {backend} rank(s) in "
+          f"{res['wall_s']:.2f} s: every rank's proof "
+          f"{'is the same' if same else 'is NOT the same'}; "
+          f"{'ok' if res['ok'] else 'FAILED'}", flush=True)
+    res.update(same_proof=same, faults=faults, ranks=[
+        {k: v for k, v in r.items() if k != "proof"} for r in ranks])
+    print(json.dumps(res), flush=True)
+    return 0 if res["ok"] else 1
+
+
 # -- the parent: children under a host-memory watch ------------------------------
 
 def watch_child(args: list, cwd: str, disk_dir: str) -> dict:
-    """Run `prove_at_scale.py --child *args` from `cwd` and watch it: its
-    resident set (stopped past the cap) and the used bytes of the file
-    system that holds disk_dir (peak_disk_used_bytes)."""
+    """Run `prove_at_scale.py --child *args` from `cwd` and watch it: the
+    summed resident set of its process tree (the whole tree stopped past
+    the cap), the card's used memory (peak_card_used_bytes, sampled about
+    once a second) and the used bytes of the file system that holds
+    disk_dir (peak_disk_used_bytes)."""
     cap = available_bytes() - HOST_MARGIN
     print(f"== {' '.join(args[:2])}: child started, host cap "
           f"{cap / 2**30:.1f} GiB (available less {HOST_MARGIN >> 30} GiB), "
@@ -355,20 +785,21 @@ def watch_child(args: list, cwd: str, disk_dir: str) -> dict:
     reader.start()
     stopped, peak_rss, t0 = None, 0, time.time()
     peak_disk = shutil.disk_usage(disk_dir).used
+    peak_card, card_at = card_used_bytes(), time.time()
     while proc.poll() is None:
-        try:
-            rss = status_bytes(proc.pid, "VmRSS")
-        except FileNotFoundError:
-            break
+        rss = tree_rss_bytes(proc.pid)
         peak_rss = max(peak_rss, rss)
         peak_disk = max(peak_disk, shutil.disk_usage(disk_dir).used)
+        if peak_card is not None and time.time() - card_at > 1.0:
+            peak_card = max(peak_card, card_used_bytes() or 0)
+            card_at = time.time()
         if rss > cap:
             stopped = (f"host RSS {rss / 2**30:.1f} GiB past the cap of "
                        f"{cap / 2**30:.1f} GiB in phase '{phase[0]}'")
-            proc.kill()
+            kill_tree(proc.pid)
         elif time.time() - t0 > CHILD_TIMEOUT:
             stopped = f"over {CHILD_TIMEOUT} s in phase '{phase[0]}'"
-            proc.kill()
+            kill_tree(proc.pid)
         time.sleep(0.05)
     proc.wait()
     reader.join(timeout=60)
@@ -376,15 +807,17 @@ def watch_child(args: list, cwd: str, disk_dir: str) -> dict:
     if lines and lines[-1].startswith("{"):
         res = json.loads(lines[-1])
     res.update(rc=proc.returncode, watched_peak_rss_bytes=peak_rss,
-               last_phase=phase[0], peak_disk_used_bytes=peak_disk)
+               peak_card_used_bytes=peak_card, last_phase=phase[0],
+               peak_disk_used_bytes=peak_disk)
     if stopped:
         res["stopped"] = stopped
     elif proc.returncode:
         res["stopped"] = (f"exit {proc.returncode} in phase '{phase[0]}'")
     print(f"== {' '.join(args[:2])}: " + (
         f"STOPPED: {res['stopped']}" if "stopped" in res else "done")
-          + f"; watched host RSS peak {peak_rss / 2**30:.2f} GiB",
-          flush=True)
+          + f"; watched host RSS peak {peak_rss / 2**30:.2f} GiB"
+          + ("" if peak_card is None else
+             f", card used peak {peak_card / 2**30:.2f} GiB"), flush=True)
     return res
 
 
@@ -396,6 +829,24 @@ def run_child(log2: int) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     res.update(log2=log2, peak_disk_bytes=res["peak_disk_used_bytes"] - base)
+    return res
+
+
+def run_sharded(name: str) -> dict:
+    """A SHARDED run in a work directory of its own (its key files, and
+    no stray table file), removed whatever happens."""
+    work = tempfile.mkdtemp(prefix=f"sharded-{name}-")
+    try:
+        base = shutil.disk_usage(work).used
+        res = watch_child([name, work], work, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res.update(run=name, peak_disk_bytes=res["peak_disk_used_bytes"] - base,
+               ranks=[{k: r.get(k) for k in (
+                   "rank", "ok", "wall_s", "inputs_s", "laps",
+                   "peak_device_bytes", "peak_host_bytes", "launches",
+                   "scans", "grid", "collectives", "sent_bytes", "uploads")}
+                   for r in res.get("ranks", [])])
     return res
 
 
@@ -433,8 +884,16 @@ def main(argv) -> int:
     if len(argv) >= 1 and argv[0] == "--child":
         if len(argv) == 4:
             return table_child(argv[2], argv[3])
+        if argv[1] in SHARDED:
+            return sharded_child(argv[1], argv[2])
         return child(int(argv[1]), argv[2])
-    sizes = [int(a) for a in argv] or [24, 25]
+    runs = argv or ["24", "25"]
+    bad = [a for a in runs if a not in SHARDED and a not in ("20", "24",
+                                                             "25")]
+    if bad:
+        print(f"prove_at_scale: unknown run(s) {bad}: give 20, 24, 25 or "
+              f"one of {sorted(SHARDED)}", file=sys.stderr)
+        return 2
     for cmd in (["nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader"], ["free", "-g"],
                 ["df", "-h", tempfile.gettempdir(), ROOT]):
@@ -442,14 +901,22 @@ def main(argv) -> int:
         print(subprocess.run(cmd, capture_output=True, text=True).stdout,
               flush=True)
     results = []
-    for k in sizes:
-        results += run_tables() if k == TABLE_LOG2 else [run_child(k)]
+    for k in runs:
+        if k in SHARDED:
+            results.append(run_sharded(k))
+        elif int(k) == TABLE_LOG2:
+            results += run_tables()
+        else:
+            results.append(run_child(int(k)))
     print(json.dumps({"prove_at_scale": [
         {k: r.get(k) for k in (
-            "log2", "step", "ok", "resident", "wall_s", "files_s",
+            "run", "log2", "step", "ok", "resident", "wall_s", "files_s",
             "kernel_build_s", "steps", "lines", "laps", "file_bytes",
             "sha256", "peak_device_bytes", "peak_host_bytes",
-            "watched_peak_rss_bytes", "peak_disk_bytes", "stopped")}
+            "watched_peak_rss_bytes", "peak_card_used_bytes",
+            "peak_card_used_marks_bytes",
+            "peak_disk_bytes", "world", "backend", "same_proof", "faults",
+            "ranks", "stopped")}
         for r in results]}), flush=True)
     return 0 if results and all(r["ok"] and "stopped" not in r
                                 for r in results) else 1

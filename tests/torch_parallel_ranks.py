@@ -21,6 +21,7 @@ from gpu_groth16_prover_3x_tpu_torch.ops.ec import get_curve_ops
 from gpu_groth16_prover_3x_tpu_torch.ops.msm import combine_window_sums
 from gpu_groth16_prover_3x_tpu_torch.parallel import multihost, prover
 from gpu_groth16_prover_3x_tpu_torch.parallel.prover import prove_sharded
+from gpu_groth16_prover_3x_tpu_torch.parallel import sharded
 from gpu_groth16_prover_3x_tpu_torch.parallel.sharded import (
     ShardedNttPlan, sharded_msm_window_sums, sharded_ntt)
 from gpu_groth16_prover_3x_tpu_torch.utils import opcount
@@ -80,9 +81,12 @@ def prove_rank(rank, curve_name, device, params=None, inputs=None,
     """prove_sharded of DeviceParams / DeviceInput (the committed fixture
     by default), streamed in global blocks of block_points when given,
     with resident_bytes; returns the affine proof, the proof file's
-    sha256, this rank's op tally, its number of bucket-scan calls and
-    where the rows of each of its two MSMs lay ("host" for numpy in host
-    memory, else "device")."""
+    sha256, this rank's op tally, its number of bucket-scan calls, where
+    the rows of each of its two MSMs lay ("host" for numpy in host
+    memory, else "device"), the arrays prover.stage_rows staged (numpy)
+    and, per MSM, the widths of its keys, rows and segment ids, its
+    chunk, the global block it was given and the block the streamed MSM
+    walked."""
     curve = CURVES[curve_name]
     if params is None:
         params = GP.load_params(os.path.join(
@@ -96,13 +100,31 @@ def prove_rank(rank, curve_name, device, params=None, inputs=None,
         scans.append(1)
         return scan(*args)
     msm.msm_scan = counted
-    where = []
+    where, msms, staged = [], [], []
     sharded_msm = prover.sharded_msm_window_sums
+    streamed = sharded.msm_window_sums_streamed
+    stage_rows = prover.stage_rows
 
-    def located(cops, keys, rows, *args, **kwargs):
+    def located(cops, keys, rows, chunk_s, c, seg, *args, **kwargs):
         where.append("host" if isinstance(rows, np.ndarray) else "device")
-        return sharded_msm(cops, keys, rows, *args, **kwargs)
+        msms.append(dict(keys=keys.shape[1], rows=rows.shape[0],
+                         seg=None if seg is None else seg.shape[0],
+                         chunk=chunk_s, block_points=kwargs["block_points"]))
+        return sharded_msm(cops, keys, rows, chunk_s, c, seg, *args,
+                           **kwargs)
+
+    def walked(cops, keys, rows, chunk_s, c, seg, num, block, *args):
+        msms[-1]["walked"] = block
+        return streamed(cops, keys, rows, chunk_s, c, seg, num, block, *args)
+
+    def kept(*args):
+        out = stage_rows(*args)
+        staged.append(out if isinstance(out, np.ndarray) else
+                      out.cpu().numpy())
+        return out
     prover.sharded_msm_window_sums = located
+    sharded.msm_window_sums_streamed = walked
+    prover.stage_rows = kept
     try:
         with opcount.collect() as tally:
             proof = prove_sharded(curve, params, inputs, device=device,
@@ -111,13 +133,28 @@ def prove_rank(rank, curve_name, device, params=None, inputs=None,
     finally:
         msm.msm_scan = scan
         prover.sharded_msm_window_sums = sharded_msm
+        sharded.msm_window_sums_streamed = streamed
+        prover.stage_rows = stage_rows
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "proof")
         ser.write_output(out, curve, *proof)
         with open(out, "rb") as f:
             sha = hashlib.sha256(f.read()).hexdigest()
     return dict(proof=proof, sha=sha, tally=tally, scans=len(scans),
-                rows=where)
+                rows=where, msms=msms, staged=staged)
+
+
+def one_rank_comm(rank):
+    """A one-rank group's Comm on a small tensor: whether all_to_all gave
+    back the tensor itself and all_gather a (1, ...) view of it, and the
+    bytes counted as sent."""
+    comm = sharded.Comm()
+    x = torch.arange(12, dtype=torch.int32).reshape(1, 3, 4)
+    with opcount.collect() as tally:
+        a = comm.all_to_all(x)
+        g = comm.all_gather(x[0])
+    return (a is x, g.shape == x.shape and g.data_ptr() == x.data_ptr(),
+            tally["all_to_all_bytes"], tally["all_gather_bytes"])
 
 
 def failing_rank(rank):
