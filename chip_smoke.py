@@ -66,7 +66,11 @@ Phases (any failure exits non-zero before the result line):
      the scan path (GROTH16_EXP_WINDOWED=0, 33 G1 and 33 Fq2 scalars)
      equals host multiples.  9c: real keys at working size, MNT4753 2^16
      and MNT6753 2^15, generated once each on the card, proved with `gpu
-     compute` and checked by verify_with_trapdoor.  9d: batch_exp_device
+     compute` and checked by verify_with_trapdoor; the MNT6753 keys (with
+     identity rows in A, B1 and B2) then through `gpu MNT6753
+     preprocess` and `compute` beside the table file, in their own
+     directory: that proof's sha256 must equal the Pippenger proof's, and
+     the file is removed whatever happens.  9d: batch_exp_device
      at MNT4753's 2^20 query size, G1 and Fq2, 256 sampled lanes against
      host multiples.  ec_add and ec_mixed_add (and ec_dbl on the scan
      path) are held against their plain versions at the setup's widths
@@ -124,8 +128,8 @@ Phases (any failure exits non-zero before the result line):
      on the one card): every rank's proof equals the unmasked host
      oracle's at 2^6, and every rank launched mont_mul, ec_add, ec_dbl
      and msm_scan; each call is timed.
- 13. bench_torch.py as a subprocess at small sizes (msm 2^16, g2 2^12,
-     ntt 2^16, 2 timed runs; the proof legs off: phases 4 and 9c prove
+ 13. bench_torch.py as a subprocess at small sizes (msm 2^14, g2 2^10,
+     ntt 2^14, 1 timed run; the proof legs off: phases 4 and 9c prove
      the same files and keys): exit 0, a value, correct: true on every
      leg that ran, and the legs' own launch counts show msm_scan, ec_add
      and ec_dbl in the MSM legs and mont_mul in the NTT leg.
@@ -203,8 +207,9 @@ from gpu_groth16_prover_3x_tpu_torch.utils.synthetic import (  # noqa: E402
 
 import __graft_entry_torch__ as GE  # noqa: E402
 import prove_at_scale as PAS  # noqa: E402
-from prove_at_scale import (CollectiveTimer, KernelTimer,  # noqa: E402
-                            UploadTimer)
+from prove_at_scale import (BUILD_KERNELS, PATH_KERNELS,  # noqa: E402
+                            SETUP_KERNELS, SETUP_LAPS, CollectiveTimer,
+                            KernelTimer, UploadTimer)
 
 SEED = 20261016
 SETUP_SEED = 7
@@ -237,12 +242,7 @@ SOURCES = {"mont_mul": "gpu_groth16_prover_3x_tpu_torch/csrc/mont_mul.cu",
            "ec_dbl": "gpu_groth16_prover_3x_tpu_torch/csrc/group.cu",
            "ec_mixed_add": "gpu_groth16_prover_3x_tpu_torch/csrc/group.cu",
            "msm_scan": "gpu_groth16_prover_3x_tpu_torch/csrc/msm_scan.cu"}
-COUNTERS = {"mont_mul": MM.MONT_MUL, "ec_add": GK.EC_ADD,
-            "ec_dbl": GK.EC_DBL, "ec_mixed_add": GK.EC_MIXED_ADD,
-            "msm_scan": M.MSM_SCAN}
-PATH_KERNELS = ("mont_mul", "ec_add", "ec_dbl", "msm_scan")
-BUILD_KERNELS = ("mont_mul", "ec_mixed_add")
-SETUP_KERNELS = ("mont_mul", "ec_add", "ec_mixed_add")
+COUNTERS = PAS.launch_counters()
 SCAN_KERNELS = ("mont_mul", "ec_dbl", "ec_mixed_add")
 MSM_STRAUS = "MSMs (device: Straus tables + Pippenger A/H)"
 
@@ -1008,7 +1008,7 @@ def table_file_phase(rng, run, workdir: str, results: dict) -> dict:
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         steps = {}
-        undo = PAS.timed_steps(torch, steps, PD, GP)
+        undo = PAS.timed_steps(steps, PD, GP)
         t0 = time.time()
         try:
             with KernelTimer(TABLE_TARGETS) as tb, HostPeak() as host, \
@@ -1034,9 +1034,9 @@ def table_file_phase(rng, run, workdir: str, results: dict) -> dict:
             f"{host.peak / 2**30:.2f} GiB, peak disk "
             f"{pre['disk_bytes'] / 1e9:.2f} GB; launches {build}")
         log_timer("in the table build", build_calls)
-        if rc != 0 or size != PAS.table_bytes(m):
+        if rc != 0 or size != PAS.table_bytes(curve, m):
             raise AssertionError(f"preprocess rc {rc}, {size} bytes, "
-                                 f"expected {PAS.table_bytes(m)}")
+                                 f"expected {PAS.table_bytes(curve, m)}")
         if build["ec_mixed_add"] != 93:
             raise AssertionError(f"{build['ec_mixed_add']} mixed adds in "
                                  f"the table build, expected 93")
@@ -1053,7 +1053,7 @@ def table_file_phase(rng, run, workdir: str, results: dict) -> dict:
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         steps = {}
-        undo = PAS.timed_steps(torch, steps, PD, GP)
+        undo = PAS.timed_steps(steps, PD, GP)
         GP.load_preprocessed = keep
         buf = io.StringIO()
         t1 = time.time()
@@ -1327,22 +1327,17 @@ def setup_oracle_phase(rng, workdir: str, results: dict, log2: int = 6,
     return launches
 
 
-SETUP_LAPS = ("setup host part (R1CS, QAP, scalar vectors)",
-              "batch_exp A (device)", "batch_exp B1 (device)",
-              "batch_exp B2 (device)", "batch_exp L (device)",
-              "batch_exp H (device)", "write files")
-
-
 def setup_full_phase(workdir: str, results: dict,
                      sizes=((MNT4753, 16), (MNT6753, 15))) -> dict:
-    """9c: real keys at working size, proved and verified."""
+    """9c: real keys at working size, proved and verified; MNT6753's also
+    through its table file (tables_from_real_keys)."""
     out = {}
     for curve, log2 in sizes:
         name = curve.name
         d = os.path.join(workdir, f"keys-{name}")
-        os.mkdir(d)
-        params, inp, td, proof = (os.path.join(d, k) for k in (
-            "parameters", "input", "trapdoor.json", "output"))
+        os.makedirs(os.path.join(d, PAS.PIPPENGER_DIR))
+        params, inp, td = PAS.key_paths(d, name)
+        proof = PAS.pippenger_proof(d, name)
         # a cold setup: the window tables of 9b (same seed, so the same
         # g1 base, and the fixed G2 generator) are built again
         SD._TABLE_CACHE.clear()
@@ -1394,7 +1389,33 @@ def setup_full_phase(workdir: str, results: dict,
         out[name] = dict(wall_s=wall, laps=laps, launches=launches,
                          peak_bytes=peak, affine=affine, log2=log2)
         os.remove(td)
+        if curve is MNT6753:
+            out[name]["tables"] = tables_from_real_keys(d, name, log2)
     return out
+
+
+def tables_from_real_keys(d: str, name: str, log2: int) -> dict:
+    """9c: `gpu <CURVE> preprocess` of the real keys in d, then `compute`
+    beside the table file (prove_at_scale's steps): the table path on
+    keys that hold identity rows, its proof sha256-equal to the
+    Pippenger proof.  The file is removed whatever happens."""
+    try:
+        runs = [PAS.preprocess_step(d, {name: log2}, DEV),
+                PAS.compute_step(d, {name: log2}, DEV)]
+    finally:
+        table = os.path.join(d, f"{name}_preprocessed")
+        if os.path.exists(table):
+            os.remove(table)
+    faults = runs[0]["faults"] + runs[1]["faults"]
+    if faults:
+        raise AssertionError(f"{name} 2^{log2} real keys, table path: "
+                             f"{faults}")
+    pre, comp = (r["curves"][name] for r in runs)
+    log(f"{name} 2^{log2} real keys: preprocess {pre['wall_s']:.2f} s "
+        f"({pre['file_bytes']} bytes), compute beside it {comp['wall_s']:.2f}"
+        f" s, sha256 {comp['sha256']} equal to the Pippenger proof's")
+    return dict(build_launches=pre["launches"], launches=comp["launches"],
+                preprocess_s=pre["wall_s"], compute_s=comp["wall_s"])
 
 
 def batch_exp_full_phase(rng, results: dict, n: int = 1 << 20,
@@ -2145,8 +2166,8 @@ def dryrun_phase() -> dict:
 
 # -- phase 13: the bench ---------------------------------------------------
 
-BENCH13_ENV = {"BENCH_LOG2N": "16", "BENCH_G2_LOG2N": "12",
-               "BENCH_NTT_LOG2N": "16", "BENCH_REPS": "2",
+BENCH13_ENV = {"BENCH_LOG2N": "14", "BENCH_G2_LOG2N": "10",
+               "BENCH_NTT_LOG2N": "14", "BENCH_REPS": "1",
                "BENCH_SKIP_PROOF20": "1", "BENCH_PROOF_LOG2D": "0"}
 BENCH13_LAUNCHED = {"msm": ("msm_scan", "ec_add", "ec_dbl"),
                     "g2": ("msm_scan", "ec_add", "ec_dbl"),
@@ -2185,7 +2206,8 @@ def bench_phase() -> dict:
         require_launched(f"bench leg {leg}", r["launches"],
                          BENCH13_LAUNCHED[leg])
     log(f"13: bench_torch.py {wall:.1f} s, exit 0, value "
-        f"{last['value']:.1f} points/s at 2^16; msm, g2, ntt correct; "
+        f"{last['value']:.1f} points/s at 2^{BENCH13_ENV['BENCH_LOG2N']}; "
+        f"msm, g2, ntt correct; "
         f"launches " + ", ".join(f"{leg} {detail[leg]['launches']}"
                                  for leg in BENCH13_LAUNCHED))
     return dict(wall_s=wall, line=last)
@@ -2389,6 +2411,11 @@ def main() -> int:
             bexp[g]["launches"][k] for g in ("g1", "g2"))
         entry["launches_setup_scan_33"] = sum(
             small[f"scan {g}"][k] for g in ("g1", "g2"))
+        real6 = keys["MNT6753"]["tables"]
+        entry["launches_real_keys_table_build_mnt6753_2p15"] = \
+            real6["build_launches"][k]
+        entry["launches_real_keys_table_proof_mnt6753_2p15"] = \
+            real6["launches"][k]
     missing = [k for k in ("mont_mul", "ec_add", "ec_dbl", "ec_mixed_add")
                if not any(e["name"] == k and (e["launches_setup_mnt4753_2p16"]
                                               + e["launches_setup_scan_33"])

@@ -44,7 +44,9 @@ def generate_parameters(curve: CurveParams, log2_d: int, params_path: str,
         ser.write_params_rows(params_path, rows)
     ser.write_input(input_path, curve, result.w, result.ca, result.cb,
                     result.cc, result.r)
+    leave_block("write files")
     if trapdoor_path:
+        enter_block("write trapdoor")
         td = result.trapdoor
         with open(trapdoor_path, "w") as f:
             json.dump({
@@ -54,8 +56,7 @@ def generate_parameters(curve: CurveParams, log2_d: int, params_path: str,
                 "d": result.d, "m": result.m,
                 "w": result.w, "r": result.r,
             }, f)
-    leave_block("write files")
-
+        leave_block("write trapdoor")
 
 
 def trapdoor_result(curve: CurveParams, td_path: str, input_path: str):
@@ -72,6 +73,7 @@ def trapdoor_result(curve: CurveParams, td_path: str, input_path: str):
         trapdoor=groth16.Trapdoor(td["t"], td["alpha"], td["beta"],
                                   td["delta"], td["g1_dlog"], td["at"],
                                   td["bt"], td["ct"], td["zt"]))
+
 
 def generate_all(fast: bool = False, outdir: str = ".",
                  log2_d_4753: Optional[int] = None,

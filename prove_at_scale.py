@@ -1,7 +1,8 @@
-"""MNT4753 proofs at the sizes users run, on one card, with the device
-and host memory at every phase boundary.
+"""Proofs at the sizes users run, on one card, with the device and host
+memory at every phase boundary.
 
-    python3 prove_at_scale.py [LOG2 | wD-LOG2 ...]     (default: 24 25)
+    python3 prove_at_scale.py [LOG2 | wD-LOG2 | keys | oracle-15 ...]
+                                                     (default: 24 25)
 
 LOG2 is log2(d + 1).  Each size runs in child processes of its own,
 unforced (no resident_bytes, block_points or environment switch):
@@ -24,6 +25,25 @@ unforced (no resident_bytes, block_points or environment switch):
         dropped once the session holds its rows, then the input made
         (utils/synthetic.input_values) and proved: the rows stay in host
         memory and go up a block at a time (chip_smoke.py phase 11d).
+
+keys and oracle-15 (KEY_RUNS) drive real keys at the reference's
+default sizes (generate_all: MNT4753 2^20, MNT6753 2^15), a child a
+step, in one work directory:
+
+  keys       setup: generate_parameters on the card at SEED with its
+             trapdoor, the laps, the identity rows of each query (A, B1
+             and B2 must hold some); pippenger: `gpu compute` unforced,
+             checked by verify_with_trapdoor, then with the rows in host
+             memory in blocks of 2^(log2 - 1) points and through `serve`
+             (twice), each sha256-equal to the unforced proof; preprocess:
+             the table files, table_bytes long; compute: beside them, the
+             table path, sha256-equal to the Pippenger proof;
+  oracle-15  MNT6753 alone: setup and pippenger as above, then `cpu
+             compute`, the reference's oracle, sha256-equal to the gpu
+             proof.
+
+The steps are functions of (work directory, sizes, device); the CPU tests
+run them at 2^4 (tests/test_torch_real_keys.py).
 
 wD-LOG2 (SHARDED: w1-24, w1-25, w2-24) is parallel/prover.prove_sharded
 over D ranks that the child spawns (parallel/multihost.launch_local; nccl
@@ -273,10 +293,13 @@ TABLE_LOG2 = 20
 TABLE_STEPS = ("preprocess", "compute", "pippenger")
 
 
-def table_bytes(m: int) -> int:
-    """Bytes of MNT4753_preprocessed for m variables: 31 multiples of B1
-    and B2 (m + 1 points, 192 + 384 B) and of L (m - 1 points, 192 B)."""
-    return 31 * ((m + 1) * 576 + (m - 1) * 192)
+def table_bytes(curve, m: int) -> int:
+    """Bytes of <CURVE>_preprocessed for m variables: 31 multiples of B1
+    and B2 (m + 1 points; an affine G1 point is 192 B, a G2 point 384 B
+    over MNT4753's Fq2 and 576 B over MNT6753's Fq3) and of L (m - 1
+    points, 192 B)."""
+    g1, g2 = 2 * 96, 2 * curve.ext_degree * 96
+    return 31 * ((m + 1) * (g1 + g2) + (m - 1) * g1)
 
 
 def sha256(path: str) -> str:
@@ -287,7 +310,7 @@ def sha256(path: str) -> str:
     return h.hexdigest()
 
 
-def timed_steps(torch, steps: dict, PD, GP):
+def timed_steps(steps: dict, PD, GP, device="cuda"):
     """Wrap the prover's table steps where it has them as functions (an
     older prover lacks some; they are then left out): the preprocess's
     load_params (host clock), models/preprocess_device.write_rows (one
@@ -296,6 +319,8 @@ def timed_steps(torch, steps: dict, PD, GP):
     build to the build) and models/gpu_prover.upload_tables (between two
     synchronisations).  Seconds are summed into `steps`: "load params",
     "copy", "write", "upload".  Returns an undo function."""
+    import torch
+    dev = torch.device(device)
     saved = []
 
     def add(name, dt):
@@ -314,7 +339,7 @@ def timed_steps(torch, steps: dict, PD, GP):
         write_rows = PD.write_rows
 
         def split(f, rows):
-            torch.cuda.synchronize()
+            GP.sync_device(dev)
             t0 = time.perf_counter()
             host = rows.cpu()
             t1 = time.perf_counter()
@@ -327,10 +352,10 @@ def timed_steps(torch, steps: dict, PD, GP):
         upload = GP.upload_tables
 
         def timed(*args):
-            torch.cuda.synchronize()
+            GP.sync_device(dev)
             t0 = time.perf_counter()
             out = upload(*args)
-            torch.cuda.synchronize()
+            GP.sync_device(dev)
             add("upload", time.perf_counter() - t0)
             return out
         saved.append((GP, "upload_tables", upload))
@@ -340,6 +365,72 @@ def timed_steps(torch, steps: dict, PD, GP):
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
     return undo
+
+
+def launch_counters() -> dict:
+    """The launch counter of each kernel wrapper."""
+    from gpu_groth16_prover_3x_tpu_torch.ops import group_kernels as GK
+    from gpu_groth16_prover_3x_tpu_torch.ops import mont_mul as MM
+    from gpu_groth16_prover_3x_tpu_torch.ops import msm as M
+    return {"mont_mul": MM.MONT_MUL, "ec_add": GK.EC_ADD,
+            "ec_dbl": GK.EC_DBL, "ec_mixed_add": GK.EC_MIXED_ADD,
+            "msm_scan": M.MSM_SCAN}
+
+
+def start_run(dev) -> None:
+    """Just before a run: each kernel's launches from 0, no block laps,
+    the device's peak memory from here."""
+    import torch
+    from gpu_groth16_prover_3x_tpu_torch.utils import profiling
+    for k in launch_counters().values():
+        k.launches = 0
+    profiling.clear_laps()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def end_run(dev) -> dict:
+    """Just after a run, the card drained: its launches, block laps and
+    peak device memory (None on the CPU)."""
+    import torch
+    from gpu_groth16_prover_3x_tpu_torch.models import gpu_prover as GP
+    from gpu_groth16_prover_3x_tpu_torch.utils import profiling
+    GP.sync_device(dev)
+    return dict(launches={n: k.launches for n, k in
+                          launch_counters().items()},
+                laps=profiling.last_laps(),
+                peak_device_bytes=(torch.cuda.max_memory_allocated()
+                                   if dev.type == "cuda" else None))
+
+
+def cli_run(argv: list, device: str) -> dict:
+    """One command of the port's CLI (utils/cli.main) with its standard
+    output captured and echoed: exit code, seconds to a drained card, the
+    run's launches, laps and device peak (start_run, end_run), the
+    `<label>: <seconds>s` lines it printed and its table steps
+    (timed_steps)."""
+    import torch
+    from gpu_groth16_prover_3x_tpu_torch.models import gpu_prover as GP
+    from gpu_groth16_prover_3x_tpu_torch.models import preprocess_device as PD
+    from gpu_groth16_prover_3x_tpu_torch.utils import cli
+    dev = torch.device(device)
+    steps = {}
+    start_run(dev)
+    undo = timed_steps(steps, PD, GP, device)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        res = end_run(dev)
+    finally:
+        undo()
+    res.update(rc=rc, wall_s=time.perf_counter() - t0, steps=steps)
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    res["lines"] = {k: float(v) for k, v in
+                    re.findall(r"^(.+): ([0-9.]+)s$", text, re.M)}
+    return res
 
 
 def table_child(step: str, workdir: str) -> int:
@@ -353,9 +444,7 @@ def table_child(step: str, workdir: str) -> int:
     ch = Child()
     GP = ch.GP
     from gpu_groth16_prover_3x_tpu_torch.curves.constants import MNT4753
-    from gpu_groth16_prover_3x_tpu_torch.models import preprocess_device as PD
     from gpu_groth16_prover_3x_tpu_torch.ops import build
-    from gpu_groth16_prover_3x_tpu_torch.utils import cli, profiling
     from gpu_groth16_prover_3x_tpu_torch.utils import synthetic as SY
 
     os.environ.pop("GROTH16_PREPROCESSED_PATH", None)
@@ -363,8 +452,7 @@ def table_child(step: str, workdir: str) -> int:
     d1 = 1 << log2
     params = os.path.join(workdir, f"{curve.name}-parameters")
     inp = os.path.join(workdir, f"{curve.name}-input")
-    res, steps = dict(log2=log2, step=step), {}
-    profiling.clear_laps()
+    res = dict(log2=log2, step=step)
     if step == "preprocess":
         t0 = time.time()
         SY.write_synthetic(curve, log2, workdir,
@@ -374,31 +462,18 @@ def table_child(step: str, workdir: str) -> int:
     t0 = time.time()
     build.library()
     res["kernel_build_s"] = time.time() - t0
-    undo = timed_steps(torch, steps, PD, GP)
     args = ([params] if step == "preprocess" else
             [params, inp, os.path.abspath("proof")])
-    buf = io.StringIO()
-    t1 = time.time()
-    try:
-        with contextlib.redirect_stdout(buf):
-            rc = cli.main(["gpu", curve.name, step.replace(
-                "pippenger", "compute"), *args, "--device", "cuda"])
-        torch.cuda.synchronize()
-    finally:
-        undo()
-    res["wall_s"] = time.time() - t1
-    text = buf.getvalue()
-    print(text, end="", flush=True)
-    res.update(rc=rc, steps=steps, laps=profiling.last_laps(),
-               lines={k: float(v) for k, v in
-                      re.findall(r"^(.+): ([0-9.]+)s$", text, re.M)})
+    res.update(cli_run(["gpu", curve.name, step.replace(
+        "pippenger", "compute"), *args, "--device", "cuda"], "cuda"))
+    rc, steps = res["rc"], res["steps"]
     if step == "preprocess":
         size = os.path.getsize(f"{curve.name}_preprocessed")
-        res.update(file_bytes=size, ok=rc == 0 and size == table_bytes(d1))
+        want = table_bytes(curve, d1)
+        res.update(file_bytes=size, ok=rc == 0 and size == want)
         ch.mark("table file written")
         print(f"MNT4753 2^{log2} preprocess: {res['wall_s']:.2f} s, "
-              f"{size} bytes (expected {table_bytes(d1)}), steps {steps}",
-              flush=True)
+              f"{size} bytes (expected {want}), steps {steps}", flush=True)
     else:
         inputs = GP.load_input(inp, curve, d1 - 1, d1)
         want = SY.known_proof(curve, SY.KS, SY.query_logs(log2),
@@ -411,6 +486,357 @@ def table_child(step: str, workdir: str) -> int:
               f"path {tables}, A, B, C "
               f"{'equal' if res['ok'] else 'DIFFER FROM'} the known logs",
               flush=True)
+    return ch.finish(res)
+
+
+# -- real keys: generate_parameters at its default sizes, every proving path --
+
+# generate_all's default sizes (models/setup.py), log2(d + 1) per curve
+KEY_SIZES = {"MNT4753": 20, "MNT6753": 15}
+SETUP_LAPS = ("setup host part (R1CS, QAP, scalar vectors)",
+              "batch_exp A (device)", "batch_exp B1 (device)",
+              "batch_exp B2 (device)", "batch_exp L (device)",
+              "batch_exp H (device)", "write files", "write trapdoor")
+QUERIES = ("A", "B1", "B2", "L", "H")
+# the kernels a command must launch on a card
+SETUP_KERNELS = ("mont_mul", "ec_add", "ec_mixed_add")
+PATH_KERNELS = ("mont_mul", "ec_add", "ec_dbl", "msm_scan")
+BUILD_KERNELS = ("mont_mul", "ec_mixed_add")
+PIPPENGER_DIR = "pippenger"     # holds no table file
+# the environment that could switch a proof off the path a step drives
+PATH_VARS = ("GROTH16_PREPROCESSED_PATH", "GROTH16_MSM_RESIDENT_BYTES",
+             "GROTH16_MSM_BLOCK_POINTS")
+
+
+def key_paths(workdir: str, name: str) -> tuple:
+    """(parameters, input, trapdoor JSON) of a curve's keys in workdir."""
+    return tuple(os.path.join(workdir, f"{name}-{k}")
+                 for k in ("parameters", "input", "trapdoor.json"))
+
+
+def pippenger_proof(workdir: str, name: str) -> str:
+    """The unforced Pippenger proof, which the other paths must equal."""
+    return os.path.join(workdir, PIPPENGER_DIR, f"{name}-proof")
+
+
+def identity_rows(params_path: str, curve) -> dict:
+    """Per query, its all-zero rows: the point at infinity (y == 0)."""
+    from gpu_groth16_prover_3x_tpu_torch.models import gpu_prover as GP
+    p = GP.load_params(params_path, curve)
+    return {q: int((~getattr(p, q).any(1)).sum()) for q in QUERIES}
+
+
+def unlaunched(what: str, run: dict, names, dev) -> list:
+    """The faults of a run on a card in which a kernel of `names` never
+    launched (the CPU runs the plain versions, which launch nothing)."""
+    missing = [n for n in names if not run["launches"][n]]
+    return [f"{what}: never launched {missing}"] \
+        if dev.type == "cuda" and missing else []
+
+
+@contextlib.contextmanager
+def environment(**values):
+    """The process environment with `values` set, restored after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class StreamedBlocks:
+    """The streamed MSMs of models/gpu_prover (msm_window_sums_streamed):
+    per call its group configuration, where its rows lay, its block grid,
+    and each block that holds an identity row with a point after it in
+    the block (so not the grid's zero padding): [block, such rows]."""
+
+    def __enter__(self):
+        import torch
+        from gpu_groth16_prover_3x_tpu_torch.models import gpu_prover as GP
+        from gpu_groth16_prover_3x_tpu_torch.ops import msm as M
+        self.GP, self.saved, self.calls = GP, GP.msm_window_sums_streamed, []
+
+        def keep(cops, keys, rows, chunk_s, c, seg, num, block, *args):
+            nblk, per = M.block_grid(rows.shape[0], chunk_s, block)
+            live = torch.as_tensor(rows).ne(0).any(1).cpu()
+            inner = []
+            for i in range(nblk):
+                pts = torch.nonzero(live[i * per:(i + 1) * per]).flatten()
+                if len(pts):
+                    k = int(pts[-1]) + 1 - len(pts)
+                    if k:
+                        inner.append([i, k])
+            self.calls.append(dict(
+                cfg=cops.cfg, deg=cops.deg, rows=rows.shape[0],
+                rows_on="device" if torch.is_tensor(rows)
+                and rows.device.type != "cpu" else "host",
+                blocks=nblk, block_points=per, identity_blocks=inner))
+            return self.saved(cops, keys, rows, chunk_s, c, seg, num, block,
+                              *args)
+        GP.msm_window_sums_streamed = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.GP.msm_window_sums_streamed = self.saved
+
+
+def block_faults(calls: list, uploads) -> list:
+    """What the host-row proof breaks: its two streamed MSMs (G1, then
+    B2) each from host rows in more than one block, with an identity row
+    inside a block (StreamedBlocks), and on a card (uploads: UploadTimer's
+    totals and strays) one upload a block, each from pinned memory on the
+    copy stream."""
+    out = [] if [k["deg"] > 1 for k in calls] == [False, True] else \
+        [f"streamed MSMs of degrees {[k['deg'] for k in calls]}, not G1 "
+         f"and B2"]
+    for k in calls:
+        if k["rows_on"] != "host" or k["blocks"] < 2 or \
+                not k["identity_blocks"]:
+            out.append(f"cfg {k['cfg']}: rows on the {k['rows_on']} in "
+                       f"{k['blocks']} blocks, identity rows inside blocks "
+                       f"{k['identity_blocks']}")
+    if uploads is not None:
+        (n, _, _), stray = uploads
+        if n != sum(k["blocks"] for k in calls) or stray:
+            out.append(f"{n} uploads ({stray} not pinned or not on the copy "
+                       f"stream) for {sum(k['blocks'] for k in calls)} "
+                       f"blocks")
+    return out
+
+
+def setup_step(workdir: str, sizes: dict, device: str) -> dict:
+    """generate_parameters for each curve of `sizes` (name -> log2(d + 1))
+    at SEED, with its trapdoor, into workdir, with no checkpoint
+    ($GROTH16_SETUP_CACHE) to stand in for it.  The keys must hold
+    identity rows in A, B1 and B2 (the y == 0 path the proofs then take);
+    on a card the setup must launch SETUP_KERNELS."""
+    import torch
+    from gpu_groth16_prover_3x_tpu_torch.curves.constants import CURVES
+    from gpu_groth16_prover_3x_tpu_torch.models import setup as SU
+    os.environ.pop("GROTH16_SETUP_CACHE", None)
+    dev = torch.device(device)
+    curves, faults = {}, []
+    for name, log2 in sizes.items():
+        params, inp, td = key_paths(workdir, name)
+        start_run(dev)
+        t0 = time.perf_counter()
+        SU.generate_parameters(CURVES[name], log2, params, inp, seed=SEED,
+                               trapdoor_path=td, device=device)
+        res = end_run(dev)
+        res.update(log2=log2, wall_s=time.perf_counter() - t0,
+                   laps={k: v for k, v in res["laps"].items()
+                         if k in SETUP_LAPS},
+                   identity_rows=identity_rows(params, CURVES[name]),
+                   bytes={k: os.path.getsize(p) for k, p in
+                          zip(("parameters", "input", "trapdoor"),
+                              (params, inp, td))})
+        curves[name] = res
+        none = [q for q in ("A", "B1", "B2") if not res["identity_rows"][q]]
+        if none:
+            faults.append(f"{name}: no identity row in {none}")
+        faults += unlaunched(f"{name} setup", res, SETUP_KERNELS, dev)
+        print(f"{name} 2^{log2} generate_parameters: {res['wall_s']:.2f} s,"
+              f" peak device {(res['peak_device_bytes'] or 0) / 2**30:.2f} "
+              f"GiB, launches {res['launches']}; identity rows "
+              f"{res['identity_rows']}; bytes {res['bytes']}", flush=True)
+        for k, v in res["laps"].items():
+            print(f"  {k}: {v:.3f} s", flush=True)
+    return dict(step="setup", ok=not faults, faults=faults, curves=curves)
+
+
+def pippenger_step(workdir: str, sizes: dict, device: str) -> dict:
+    """Each curve's keys proved by Pippenger in workdir/pippenger (no
+    table file there): `gpu compute` unforced, its proof held against
+    host/groth16.verify_with_trapdoor; then the same files with the rows
+    kept in host memory in blocks of 2^(log2 - 1) points (the G1 rows in
+    8 blocks, B2 in 3; on a card uploaded block by block), and `serve`
+    of the input twice: each proof's sha256 must equal the unforced
+    one's."""
+    import torch
+    from gpu_groth16_prover_3x_tpu_torch.curves.constants import CURVES
+    from gpu_groth16_prover_3x_tpu_torch.host import groth16 as HG
+    from gpu_groth16_prover_3x_tpu_torch.models import setup as SU
+    from gpu_groth16_prover_3x_tpu_torch.utils.synthetic import read_proof
+    dev = torch.device(device)
+    for var in PATH_VARS:
+        os.environ.pop(var, None)
+    pip = os.path.join(workdir, PIPPENGER_DIR)
+    os.makedirs(pip, exist_ok=True)
+    curves, faults = {}, []
+    with contextlib.chdir(pip):
+        for name, log2 in sizes.items():
+            curve = CURVES[name]
+            params, inp, td = key_paths(workdir, name)
+            out = {k: os.path.join(pip, f"{name}-{k}")
+                   for k in ("host-rows", "serve-0", "serve-1")}
+            out["unforced"] = pippenger_proof(workdir, name)
+            gpu = ["gpu", name]
+            runs = {"unforced": cli_run(gpu + [
+                "compute", params, inp, out["unforced"], "--device", device],
+                device)}
+            t0 = time.perf_counter()
+            verified = HG.verify_with_trapdoor(
+                curve, SU.trapdoor_result(curve, td, inp),
+                *read_proof(out["unforced"], curve))
+            verify_s = time.perf_counter() - t0
+            block = 1 << (log2 - 1)
+            timer = UploadTimer() if dev.type == "cuda" else \
+                contextlib.nullcontext()
+            with environment(GROTH16_MSM_RESIDENT_BYTES="0",
+                             GROTH16_MSM_BLOCK_POINTS=str(block)), \
+                    StreamedBlocks() as blocks, timer as up:
+                runs["host rows"] = cli_run(gpu + [
+                    "compute", params, inp, out["host-rows"], "--device",
+                    device], device)
+            uploads = None if up is None else (up.totals(), up.stray)
+            runs["serve"] = cli_run(gpu + [
+                "serve", params, inp, out["serve-0"], inp, out["serve-1"],
+                "--device", device], device)
+            shas = {k: sha256(p) for k, p in out.items()}
+            bad = [k for k, v in shas.items() if v != shas["unforced"]]
+            for k, r in runs.items():
+                if r["rc"]:
+                    faults.append(f"{name} {k}: exit {r['rc']}")
+                faults += unlaunched(f"{name} {k}", r, PATH_KERNELS, dev)
+            if not verified:
+                faults.append(f"{name}: the proof fails verify_with_trapdoor")
+            if bad:
+                faults.append(f"{name}: {bad} differ from the unforced proof")
+            faults += [f"{name} host rows: {f}"
+                       for f in block_faults(blocks.calls, uploads)]
+            curves[name] = dict(log2=log2, runs=runs, verified=verified,
+                                verify_s=verify_s, sha256=shas,
+                                block_points=block, streamed=blocks.calls,
+                                uploads=uploads)
+            print(f"{name} 2^{log2} Pippenger: unforced "
+                  f"{runs['unforced']['wall_s']:.2f} s, verify_with_trapdoor "
+                  f"{verified} ({verify_s:.1f} s); host rows in blocks of "
+                  f"{block} {runs['host rows']['wall_s']:.2f} s, streamed "
+                  f"{blocks.calls}, uploads {uploads}; serve x 2 "
+                  f"{runs['serve']['wall_s']:.2f} s; sha256 "
+                  f"{shas['unforced']}, {'all equal' if not bad else bad}",
+                  flush=True)
+    return dict(step="pippenger", ok=not faults, faults=faults,
+                curves=curves)
+
+
+def preprocess_step(workdir: str, sizes: dict, device: str) -> dict:
+    """`gpu <CURVE> preprocess` on each curve's keys in workdir: its table
+    file beside them, table_bytes(curve, m) long, built on BUILD_KERNELS
+    on a card."""
+    import torch
+    from gpu_groth16_prover_3x_tpu_torch.curves.constants import CURVES
+    dev = torch.device(device)
+    os.environ.pop("GROTH16_PREPROCESSED_PATH", None)
+    curves, faults = {}, []
+    with contextlib.chdir(workdir):
+        for name, log2 in sizes.items():
+            params, _, _ = key_paths(workdir, name)
+            res = cli_run(["gpu", name, "preprocess", params, "--device",
+                           device], device)
+            want = table_bytes(CURVES[name], 1 << log2)
+            res.update(log2=log2, file_bytes=os.path.getsize(
+                f"{name}_preprocessed"), want_bytes=want)
+            curves[name] = res
+            if res["rc"] or res["file_bytes"] != want:
+                faults.append(f"{name}: exit {res['rc']}, "
+                              f"{res['file_bytes']} bytes, not {want}")
+            faults += unlaunched(f"{name} preprocess", res, BUILD_KERNELS,
+                                 dev)
+            print(f"{name} 2^{log2} preprocess: {res['wall_s']:.2f} s, "
+                  f"{res['file_bytes']} bytes (expected {want}), steps "
+                  f"{res['steps']}, launches {res['launches']}", flush=True)
+    return dict(step="preprocess", ok=not faults, faults=faults,
+                curves=curves)
+
+
+def compute_step(workdir: str, sizes: dict, device: str) -> dict:
+    """`gpu <CURVE> compute` in workdir, beside each curve's table file:
+    it must load the file (the table path) and write the bytes of the
+    Pippenger proof."""
+    import torch
+    dev = torch.device(device)
+    for var in PATH_VARS:
+        os.environ.pop(var, None)
+    curves, faults = {}, []
+    with contextlib.chdir(workdir):
+        for name, log2 in sizes.items():
+            params, inp, _ = key_paths(workdir, name)
+            out = os.path.join(workdir, f"{name}-table-proof")
+            res = cli_run(["gpu", name, "compute", params, inp, out,
+                           "--device", device], device)
+            res.update(log2=log2, tables="load preprocessing" in
+                       res["lines"], sha256=sha256(out))
+            curves[name] = res
+            same = res["sha256"] == sha256(pippenger_proof(workdir, name))
+            if res["rc"] or not res["tables"] or not same:
+                faults.append(f"{name}: exit {res['rc']}, table path "
+                              f"{res['tables']}, sha256 "
+                              f"{'equal' if same else 'DIFFERENT'}")
+            faults += unlaunched(f"{name} table proof", res, PATH_KERNELS,
+                                 dev)
+            print(f"{name} 2^{log2} compute beside the table file: "
+                  f"{res['wall_s']:.2f} s, table path {res['tables']}, "
+                  f"sha256 {res['sha256']} "
+                  f"{'equals' if same else 'DIFFERS FROM'} the Pippenger "
+                  f"proof's; launches {res['launches']}", flush=True)
+    return dict(step="compute", ok=not faults, faults=faults, curves=curves)
+
+
+def oracle_step(workdir: str, sizes: dict, device: str) -> dict:
+    """`cpu <CURVE> compute`, the host oracle (native C++ MSMs), on each
+    curve's keys: its proof must have the Pippenger proof's sha256."""
+    curves, faults = {}, []
+    for name, log2 in sizes.items():
+        params, inp, _ = key_paths(workdir, name)
+        out = os.path.join(workdir, f"{name}-oracle-proof")
+        res = cli_run(["cpu", name, "compute", params, inp, out], device)
+        res.update(log2=log2, sha256=sha256(out))
+        curves[name] = res
+        same = res["sha256"] == sha256(pippenger_proof(workdir, name))
+        if res["rc"] or not same:
+            faults.append(f"{name}: exit {res['rc']}, the oracle's sha256 "
+                          f"{'equals' if same else 'DIFFERS FROM'} the gpu "
+                          f"proof's")
+        print(f"{name} 2^{log2} cpu compute (the oracle): "
+              f"{res['wall_s']:.2f} s, sha256 {res['sha256']} "
+              f"{'equals' if same else 'DIFFERS FROM'} the gpu proof's",
+              flush=True)
+    return dict(step="oracle", ok=not faults, faults=faults, curves=curves)
+
+
+KEY_STEPS = {"setup": setup_step, "pippenger": pippenger_step,
+             "preprocess": preprocess_step, "compute": compute_step,
+             "oracle": oracle_step}
+# run: (curves, steps in order)
+KEY_RUNS = {"keys": (("MNT4753", "MNT6753"),
+                     ("setup", "pippenger", "preprocess", "compute")),
+            "oracle-15": (("MNT6753",), ("setup", "pippenger", "oracle"))}
+
+
+def key_child(run: str, step: str, workdir: str) -> int:
+    """One step of a KEY_RUNS run on the card, at KEY_SIZES."""
+    import torch
+    if not torch.cuda.is_available():
+        print("prove_at_scale: no CUDA card", file=sys.stderr)
+        return 1
+    ch = Child()
+    from gpu_groth16_prover_3x_tpu_torch.ops import build
+    from gpu_groth16_prover_3x_tpu_torch.utils import native
+    t0 = time.time()
+    build.library()
+    native.available()
+    build_s = time.time() - t0
+    names, _ = KEY_RUNS[run]
+    res = KEY_STEPS[step](workdir, {n: KEY_SIZES[n] for n in names}, "cuda")
+    res.update(run=run, kernel_build_s=build_s)
+    print(f"{run} {step}: {'ok' if res['ok'] else 'FAILED'}; faults "
+          f"{res['faults'] or 'none'}", flush=True)
     return ch.finish(res)
 
 
@@ -850,49 +1276,57 @@ def run_sharded(name: str) -> dict:
     return res
 
 
-def run_tables() -> list:
-    """The 2^20 table workflow: preprocess, compute beside the file,
-    compute without it; the two proofs must be byte-identical.  The
-    table file is removed with the work directory whatever happens."""
-    work = tempfile.mkdtemp(prefix=f"tables{TABLE_LOG2}-")
-    pip = os.path.join(work, "pippenger")
+def run_steps(run: str) -> list:
+    """A run of steps, each a watched child, in one work directory that
+    is removed whatever happens (table files included): the 2^20 table
+    workflow, or a KEY_RUNS run.  The Pippenger step runs from the
+    work directory's `pippenger`, which holds no table file.  A step that
+    fails ends the run."""
+    steps = TABLE_STEPS if run == str(TABLE_LOG2) else KEY_RUNS[run][1]
+    work = tempfile.mkdtemp(prefix=f"{run}-")
+    pip = os.path.join(work, PIPPENGER_DIR)
     os.mkdir(pip)
     out = []
     try:
         base = shutil.disk_usage(work).used
-        for step in TABLE_STEPS:
-            res = watch_child([str(TABLE_LOG2), step, work],
+        for step in steps:
+            res = watch_child([run, step, work],
                               pip if step == "pippenger" else work, work)
-            res.update(log2=TABLE_LOG2, step=step, peak_disk_bytes=(
+            res.update(run=run, step=step, peak_disk_bytes=(
                 res["peak_disk_used_bytes"] - base))
             out.append(res)
             if not res["ok"] or "stopped" in res:
                 break
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    if len(out) == len(TABLE_STEPS):
+    if run == str(TABLE_LOG2) and len(out) == len(steps):
         same = out[1]["sha256"] == out[2]["sha256"]
         print(f"== 2^{TABLE_LOG2}: the table proof's sha256 "
               f"{'equals' if same else 'DIFFERS FROM'} the Pippenger "
               f"proof's", flush=True)
         if not same:
             out[1]["stopped"] = "sha256 differs from the Pippenger proof"
+    elif len(out) < len(steps):
+        out[-1].setdefault("stopped", f"steps {steps[len(out):]} not run")
     return out
 
 
 def main(argv) -> int:
     if len(argv) >= 1 and argv[0] == "--child":
+        if len(argv) == 4 and argv[1] in KEY_RUNS:
+            return key_child(*argv[1:])
         if len(argv) == 4:
             return table_child(argv[2], argv[3])
         if argv[1] in SHARDED:
             return sharded_child(argv[1], argv[2])
         return child(int(argv[1]), argv[2])
     runs = argv or ["24", "25"]
-    bad = [a for a in runs if a not in SHARDED and a not in ("20", "24",
-                                                             "25")]
+    bad = [a for a in runs if a not in SHARDED and a not in KEY_RUNS
+           and a not in ("20", "24", "25")]
     if bad:
         print(f"prove_at_scale: unknown run(s) {bad}: give 20, 24, 25 or "
-              f"one of {sorted(SHARDED)}", file=sys.stderr)
+              f"one of {sorted(SHARDED) + sorted(KEY_RUNS)}",
+              file=sys.stderr)
         return 2
     for cmd in (["nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader"], ["free", "-g"],
@@ -904,8 +1338,8 @@ def main(argv) -> int:
     for k in runs:
         if k in SHARDED:
             results.append(run_sharded(k))
-        elif int(k) == TABLE_LOG2:
-            results += run_tables()
+        elif k in KEY_RUNS or k == str(TABLE_LOG2):
+            results += run_steps(k)
         else:
             results.append(run_child(int(k)))
     print(json.dumps({"prove_at_scale": [
@@ -916,7 +1350,7 @@ def main(argv) -> int:
             "watched_peak_rss_bytes", "peak_card_used_bytes",
             "peak_card_used_marks_bytes",
             "peak_disk_bytes", "world", "backend", "same_proof", "faults",
-            "ranks", "stopped")}
+            "ranks", "curves", "stopped")}
         for r in results]}), flush=True)
     return 0 if results and all(r["ok"] and "stopped" not in r
                                 for r in results) else 1
