@@ -1,0 +1,9 @@
+"""prover.stage_s in the cells whose time the host sets, where it moves
+proof_s.host: the same reader (metrics/prover.stage_s.py)."""
+
+from harness.spec import reader
+
+_base = reader("prover.stage_s")
+LAYER, UNIT, SOURCE = _base.LAYER, _base.UNIT, _base.SOURCE
+MOVES = "proof_s.host"
+read = _base.read
