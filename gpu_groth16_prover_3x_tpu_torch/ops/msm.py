@@ -36,6 +36,7 @@ import torch
 
 from ..host import field as HF
 from ..utils import native, opcount
+from ..utils.profiling import count, span
 from . import build
 from . import limbs as L
 from .ec import CurveOps, from_limb_point, to_limb_point
@@ -193,35 +194,39 @@ def _group_msm(cops: CurveOps, keys_grp, signs_grp, rows, S: int, NB: int,
     dev = rows.device
     F3 = 3 * cops.deg
 
-    order = torch.argsort(keys_grp, dim=-1, stable=True)
-    ks = torch.gather(keys_grp, 1, order).reshape(B, S)
-    ks_seq = ks.t().contiguous().to(torch.int32)                 # (S, B)
-    idx_seq = order.reshape(B, S).t().contiguous().to(torch.int32)
-    sg_seq = None
-    if signs_grp is not None:
-        sg_seq = torch.gather(signs_grp, 1, order).reshape(B, S).t() \
-            .contiguous()
-    em, em_valid, tail, first, haschg = msm_scan(cops, rows, idx_seq,
-                                                 ks_seq, sg_seq)
+    with span("msm.sort"):
+        order = torch.argsort(keys_grp, dim=-1, stable=True)
+        ks = torch.gather(keys_grp, 1, order).reshape(B, S)
+        ks_seq = ks.t().contiguous().to(torch.int32)             # (S, B)
+        idx_seq = order.reshape(B, S).t().contiguous().to(torch.int32)
+        sg_seq = None
+        if signs_grp is not None:
+            sg_seq = torch.gather(signs_grp, 1, order).reshape(B, S).t() \
+                .contiguous()
+    with span("msm.scan"):
+        em, em_valid, tail, first, haschg = msm_scan(cops, rows, idx_seq,
+                                                     ks_seq, sg_seq)
     del order, idx_seq, sg_seq
     head_key, tail_key = ks_seq[0], ks_seq[S - 1]
     uniform = ~haschg
     ident = identity_words(cops, 1, dev)[..., None]     # (F3, 24, 1, 1)
 
     # cross-chunk carry chain (Hillis-Steele, early exit)
-    link = torch.zeros((wb, C), dtype=torch.bool, device=dev)
-    link[:, 1:] = tail_key.reshape(wb, C)[:, :-1] == \
-        head_key.reshape(wb, C)[:, 1:]
-    link = link.reshape(B)
-    no = torch.zeros((1, 1), dtype=torch.bool, device=dev)
-    val = torch.where(link, _shift(tail, ident, 1, wb, C), ident[..., 0])
-    prop = link & _shift(uniform, no, 1, wb, C)
-    s = 1
-    while s < C and bool(prop.any()):
-        comb = ec_add(cops, val, _shift(val, ident, s, wb, C))
-        val = torch.where(prop, comb, val)
-        prop = prop & _shift(prop, no, s, wb, C)
-        s *= 2
+    with span("msm.carry"):
+        link = torch.zeros((wb, C), dtype=torch.bool, device=dev)
+        link[:, 1:] = tail_key.reshape(wb, C)[:, :-1] == \
+            head_key.reshape(wb, C)[:, 1:]
+        link = link.reshape(B)
+        no = torch.zeros((1, 1), dtype=torch.bool, device=dev)
+        val = torch.where(link, _shift(tail, ident, 1, wb, C),
+                          ident[..., 0])
+        prop = link & _shift(uniform, no, 1, wb, C)
+        s = 1
+        while s < C and _any_on_host(prop):
+            comb = ec_add(cops, val, _shift(val, ident, s, wb, C))
+            val = torch.where(prop, comb, val)
+            prop = prop & _shift(prop, no, s, wb, C)
+            s *= 2
 
     # boundary totals
     first_total = ec_add(cops, first, val)
@@ -254,6 +259,13 @@ def _group_msm(cops: CurveOps, keys_grp, signs_grp, rows, S: int, NB: int,
     return table
 
 
+def _any_on_host(t: torch.Tensor) -> bool:
+    """bool(t.any()): the host waits for the device to drain; counted as
+    `#msm.host_syncs`."""
+    count("msm.host_syncs")
+    return bool(t.any())
+
+
 # -- the halving reduction -----------------------------------------------------------
 
 def _reduce(cops: CurveOps, bt, NB: int, signed: bool):
@@ -261,16 +273,17 @@ def _reduce(cops: CurveOps, bt, NB: int, signed: bool):
     per group of NB, with w(b) = b (unsigned) or b + 1 (signed: starting W
     at the buckets adds sum_b bucket_b once).  Adjacent buckets pair up
     (even = lower weight), so pairs never straddle a group."""
-    Sp = bt
-    W = bt if signed else identity_words(cops, bt.shape[-1], bt.device)
-    m = NB
-    while m > 1:
-        Sa, Sb = Sp[..., 0::2].contiguous(), Sp[..., 1::2].contiguous()
-        Wa, Wb = W[..., 0::2].contiguous(), W[..., 1::2].contiguous()
-        W = ec_add(cops, ec_add(cops, Wa, Wb), Sb)
-        m //= 2
-        if m > 1:
-            Sp = ec_dbl(cops, ec_add(cops, Sa, Sb))
+    with span("msm.reduce"):
+        Sp = bt
+        W = bt if signed else identity_words(cops, bt.shape[-1], bt.device)
+        m = NB
+        while m > 1:
+            Sa, Sb = Sp[..., 0::2].contiguous(), Sp[..., 1::2].contiguous()
+            Wa, Wb = W[..., 0::2].contiguous(), W[..., 1::2].contiguous()
+            W = ec_add(cops, ec_add(cops, Wa, Wb), Sb)
+            m //= 2
+            if m > 1:
+                Sp = ec_dbl(cops, ec_add(cops, Sa, Sb))
     return W
 
 
@@ -298,21 +311,22 @@ def msm_window_sums(cops: CurveOps, keys, rows, chunk_s: int = DEFAULT_CHUNK,
     if keys.shape != (L.NWORDS, n):
         raise ValueError(f"keys shape {tuple(keys.shape)}, want (24, {n})")
     dev = rows.device
-    dig = window_digits(keys, c)
-    signs = None
-    if signed:
-        dig, signs = signed_digits(dig, c)
-    nwin = dig.shape[0]
     NB = (1 << (c - 1)) if signed else (1 << c)
-    span = NB + 1 if signed else NB                 # sort-key span per msm
-    if seg_ids is not None:
-        dig = dig + seg_ids.to(dev, torch.int64)[None, :] * span
+    key_span = NB + 1 if signed else NB             # sort-key span per msm
+    with span("msm.sort"):
+        dig = window_digits(keys, c)
+        signs = None
+        if signed:
+            dig, signs = signed_digits(dig, c)
+        if seg_ids is not None:
+            dig = dig + seg_ids.to(dev, torch.int64)[None, :] * key_span
+    nwin = dig.shape[0]
     C = n // chunk_s
     wb = _fit_block(nwin, min(max(1, SCAN_LANES // C),
                               max(1, SCAN_POINTS // n)))
     NT = num_msms * NB
     offs = torch.arange(wb, device=dev, dtype=torch.int64)[:, None] \
-        * (num_msms * span)
+        * (num_msms * key_span)
     tables = []
     for w0 in range(0, nwin, wb):
         tables.append(_group_msm(
@@ -367,25 +381,27 @@ class HostRowBlocks:
         self.uploaded = []      # per staging buffer: its last upload
 
     def issue(self, i: int):
-        k = i % 2
-        if k == len(self.staging):
-            self.staging.append(torch.empty((self.B, self.rows.shape[1]),
-                                            dtype=torch.int32,
-                                            pin_memory=True))
-            self.uploaded.append(None)
-        buf = self.staging[k]
-        if self.uploaded[k] is not None:
-            self.uploaded[k].synchronize()                    # race 1
-        part = self.rows[i * self.B:(i + 1) * self.B]
-        buf[:part.shape[0]].copy_(part)
-        buf[part.shape[0]:].zero_()         # y == 0 rows: exact no-ops
-        with torch.cuda.stream(self.copy):
-            blk = upload_block(buf, self.device)
-            done = torch.cuda.Event()
-            done.record()
-        blk.record_stream(torch.cuda.current_stream(self.device))  # race 2
-        self.uploaded[k] = done
-        return blk, done
+        with span("msm.upload"):
+            k = i % 2
+            if k == len(self.staging):
+                self.staging.append(torch.empty((self.B, self.rows.shape[1]),
+                                                dtype=torch.int32,
+                                                pin_memory=True))
+                self.uploaded.append(None)
+            buf = self.staging[k]
+            if self.uploaded[k] is not None:
+                count("msm.host_syncs")
+                self.uploaded[k].synchronize()                    # race 1
+            part = self.rows[i * self.B:(i + 1) * self.B]
+            buf[:part.shape[0]].copy_(part)
+            buf[part.shape[0]:].zero_()         # y == 0 rows: exact no-ops
+            with torch.cuda.stream(self.copy):
+                blk = upload_block(buf, self.device)
+                done = torch.cuda.Event()
+                done.record()
+            blk.record_stream(torch.cuda.current_stream(self.device))  # race 2
+            self.uploaded[k] = done
+            return blk, done
 
 
 def upload_block(pinned: torch.Tensor, device) -> torch.Tensor:
@@ -565,11 +581,14 @@ def finalize_windows_native(cops: CurveOps, host_group, ws, cbits: int,
         return None
     deg, p = cops.deg, cops.p
     nwin = ws.shape[-1] // num_msms
-    a = ws.cpu().numpy().reshape(3 * deg, L.NWORDS, nwin, num_msms)
-    rows = np.ascontiguousarray(a.transpose(3, 2, 0, 1)).view(np.uint64)
+    with span("epilogue.readback"):
+        a = ws.cpu().numpy().reshape(3 * deg, L.NWORDS, nwin, num_msms)
+        rows = np.ascontiguousarray(a.transpose(3, 2, 0, 1)).view(
+            np.uint64)
     rows = rows.reshape(num_msms, nwin, 3 * deg * L.NWORDS // 2)
-    return [native.horner_proj(p, deg, host_group.alpha, host_group.a,
-                               rows[i], cbits) for i in range(num_msms)]
+    with span("epilogue.horner"):
+        return [native.horner_proj(p, deg, host_group.alpha, host_group.a,
+                                   rows[i], cbits) for i in range(num_msms)]
 
 
 def finalize_windows(cops: CurveOps, host_group, ws, cbits: int,
@@ -578,6 +597,8 @@ def finalize_windows(cops: CurveOps, host_group, ws, cbits: int,
     else the plain one."""
     out = finalize_windows_native(cops, host_group, ws, cbits, num_msms)
     if out is None:
-        out = [finalize_msm(host_group, pts, cbits) for pts in
-               window_sums_to_host(cops, ws, num_msms)]
+        with span("epilogue.readback"):
+            per_msm = window_sums_to_host(cops, ws, num_msms)
+        with span("epilogue.horner"):
+            out = [finalize_msm(host_group, pts, cbits) for pts in per_msm]
     return out

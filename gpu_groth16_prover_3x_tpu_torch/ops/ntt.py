@@ -6,7 +6,8 @@ reshape/concat stages, natural order in and out, no bit-reversal gather.
 Each stage multiplies the odd half by its twiddles with the mont_mul
 kernel (ops/mont_mul.py) and forms E + t, E - t with plain tensor
 add/sub, COL_BLOCK lanes at a time into the level's output.  Elements
-are (24, n) int32 Montgomery words.
+are (24, n) int32 Montgomery words.  Each level's two halves are the
+host spans "ntt.twiddle" and "ntt.addsub" (utils/profiling.py).
 
 The twiddle and coset tables are built on the device by repeated
 doubling with the same Montgomery product (log2 n launches), so no
@@ -16,6 +17,7 @@ O(n) Python loop runs on the host.
 import torch
 
 from ..curves.constants import FieldParams, get_root_of_unity
+from ..utils.profiling import span
 from . import limbs as L
 from .mont_mul import mont_mul
 
@@ -123,20 +125,22 @@ def ntt(plan: NttPlan, x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     v = x.reshape(L.NWORDS, B, 1, n)
     for lvl in range(logn - 1, -1, -1):
         mp, g2 = v.shape[2:]
-        v = v.reshape(L.NWORDS, B, mp, 2, g2 // 2)
-        E, O = v[:, :, :, 0, :], v[:, :, :, 1, :]
-        w = tw[:, ::(1 << lvl)][:, :mp]
-        w = w[:, None, :, None].expand(L.NWORDS, B, mp, g2 // 2)
-        t = plan.mul(ctx, O.reshape(L.NWORDS, -1).contiguous(),
-                     w.reshape(L.NWORDS, -1).contiguous())
-        Ec = E.reshape(L.NWORDS, B, -1)       # a copy where E is strided
-        # the level's output (E + t | E - t along mp), written in place
-        v = torch.empty((L.NWORDS, B, 2, mp * (g2 // 2)), dtype=torch.int32,
-                        device=x.device)
-        add_words(ctx, Ec, t.reshape(Ec.shape), out=v[:, :, 0])
-        sub_words(ctx, Ec, t.reshape(Ec.shape), out=v[:, :, 1])
-        del Ec, t
-        v = v.reshape(L.NWORDS, B, 2 * mp, g2 // 2)
+        with span("ntt.twiddle"):
+            v = v.reshape(L.NWORDS, B, mp, 2, g2 // 2)
+            E, O = v[:, :, :, 0, :], v[:, :, :, 1, :]
+            w = tw[:, ::(1 << lvl)][:, :mp]
+            w = w[:, None, :, None].expand(L.NWORDS, B, mp, g2 // 2)
+            t = plan.mul(ctx, O.reshape(L.NWORDS, -1).contiguous(),
+                         w.reshape(L.NWORDS, -1).contiguous())
+        with span("ntt.addsub"):
+            Ec = E.reshape(L.NWORDS, B, -1)   # a copy where E is strided
+            # the level's output (E + t | E - t along mp), written in place
+            v = torch.empty((L.NWORDS, B, 2, mp * (g2 // 2)),
+                            dtype=torch.int32, device=x.device)
+            add_words(ctx, Ec, t.reshape(Ec.shape), out=v[:, :, 0])
+            sub_words(ctx, Ec, t.reshape(Ec.shape), out=v[:, :, 1])
+            del Ec, t
+            v = v.reshape(L.NWORDS, B, 2 * mp, g2 // 2)
     return v.reshape(x.shape)
 
 

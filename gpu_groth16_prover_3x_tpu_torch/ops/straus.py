@@ -30,6 +30,7 @@ then y), row k*n + i = (k+1)*P_i.
 
 import torch
 
+from ..utils.profiling import span
 from . import limbs as L
 from . import group_kernels
 from .msm import finalize_msm, identity_words, window_sums_to_host
@@ -95,12 +96,13 @@ def _tree(cops, pts: torch.Tensor, add) -> torch.Tensor:
     unchanged."""
     F3 = pts.shape[0]
     k = pts.shape[2]
-    while pts.shape[-1] > 1:
-        h = pts.shape[-1] // 2
-        s = add(cops, *(pts[..., a:a + h].reshape(F3, L.NWORDS, k * h)
-                        .contiguous() for a in (0, h)))
-        pts = torch.cat([s.reshape(F3, L.NWORDS, k, h), pts[..., 2 * h:]],
-                        -1)
+    with span("msm.straus_trees"):
+        while pts.shape[-1] > 1:
+            h = pts.shape[-1] // 2
+            s = add(cops, *(pts[..., a:a + h].reshape(F3, L.NWORDS, k * h)
+                            .contiguous() for a in (0, h)))
+            pts = torch.cat([s.reshape(F3, L.NWORDS, k, h),
+                             pts[..., 2 * h:]], -1)
     return pts[..., 0]
 
 

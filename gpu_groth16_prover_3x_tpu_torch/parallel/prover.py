@@ -38,7 +38,7 @@ from ..ops import limbs as L
 from ..ops.ec import get_curve_ops
 from ..ops.msm import finalize_windows, grid_points
 from ..ops.ntt import compute_h
-from ..utils.profiling import enter_block, leave_block
+from ..utils.profiling import enter_block, leave_block, span
 from . import multihost
 from .sharded import (Comm, ShardedNttPlan, rank_block,
                       sharded_msm_window_sums, sharded_ntt)
@@ -67,7 +67,15 @@ def prove_sharded(curve: CurveParams, params: DeviceParams,
     the JAX package, parallel/prover.py:260-290).  Each rank's rows, keys
     and segment ids are filled once, at the width of its block grid
     (rank_block, ops/msm.grid_points), so the MSMs pad nothing again.
-    Proof bytes depend on none of these."""
+    Proof bytes depend on none of these.  The proof is the root span
+    "proof" of the rank's record (utils/profiling.py)."""
+    with span("proof", root=True):
+        return _prove_sharded(curve, params, inputs, group, device,
+                              block_points, resident_bytes, verbose)
+
+
+def _prove_sharded(curve, params, inputs, group, device, block_points,
+                   resident_bytes, verbose):
     t0 = time.time()
     comm = Comm(group)
     D, rank = comm.size, comm.rank
@@ -126,7 +134,8 @@ def prove_sharded(curve: CurveParams, params: DeviceParams,
     leave_block("stage inputs (host->device)")
 
     enter_block("H pipeline (sharded NTT)")
-    splan = ShardedNttPlan(curve.fr, n, D, rank, dev)
+    with span("ntt.plan"):
+        splan = ShardedNttPlan(curve.fr, n, D, rank, dev)
     _, h_std = compute_h(splan, ca, cb, cc, lambda x, inverse: sharded_ntt(
         splan, x, inverse, group))
     del ca, cb, cc, splan
