@@ -9,15 +9,19 @@ Phases (any failure exits non-zero before the result line):
   2. hold every kernel against its plain PyTorch version on the card, on
      random canonical inputs from a numpy seed: exact equality; time the
      group kernels also at the widths of the halving reduction's first
-     level in the MNT4753 2^20 proof (G1 192 x 2^14 lanes, Fq2 48 x 2^14);
+     level in the MNT4753 2^20 proof (G1 192 x 2^14 lanes, Fq2 48 x 2^14),
+     the NTT add/sub at the 2^20 half level (2^19 lanes, both primes, the
+     level's strided even half too);
   3. sha gate: `gpu <CURVE> compute` on the committed fixtures of
      tests/data/torch_port must reproduce the committed proof hashes;
   4. the main path at full size: one MNT4753 proof at d + 1 = 2^20 (the
      reference's default) and one MNT6753 proof at 2^15 (its G2 is over
      Fq3; 2^15 is the largest power-of-two domain of its Fr), from
      synthetic parameters with known discrete logs, through prove_files; A, B and C are checked against the known logs, and the
-     proof's H polynomial against the plain H pipeline on the card and
-     against the pipeline with its plain add/sub in blocks of 2^14 lanes.
+     proof's H polynomial against the all-plain H pipeline on the card
+     (plain product and plain add/sub), once in the default column block
+     and once in blocks of 2^14 lanes; the proof's `#ntt.butterflies`
+     must be 7 log2 n and the add/sub's launches one more (a*b - c).
      The launch counts are set to 0 just before each proof and read just
      after it: every kernel of the path must have launched in each.  CUDA
      events around the MSM's calls of ec_add, ec_dbl and msm_scan sum each
@@ -236,12 +240,16 @@ REPLACES = {
     "ec_dbl": "gpu_groth16_prover_3x_tpu/ops/pallas_group.py:267",
     "ec_mixed_add": "gpu_groth16_prover_3x_tpu/ops/pallas_group.py:267",
     "msm_scan": "gpu_groth16_prover_3x_tpu/ops/pallas_group.py:490",
+    "ntt_addsub": "none: gpu_groth16_prover_3x_tpu/ops/ntt.py _ntt's "
+                  "F.add / F.sub, fused by XLA",
 }
 SOURCES = {"mont_mul": "gpu_groth16_prover_3x_tpu_torch/csrc/mont_mul.cu",
            "ec_add": "gpu_groth16_prover_3x_tpu_torch/csrc/group.cu",
            "ec_dbl": "gpu_groth16_prover_3x_tpu_torch/csrc/group.cu",
            "ec_mixed_add": "gpu_groth16_prover_3x_tpu_torch/csrc/group.cu",
-           "msm_scan": "gpu_groth16_prover_3x_tpu_torch/csrc/msm_scan.cu"}
+           "msm_scan": "gpu_groth16_prover_3x_tpu_torch/csrc/msm_scan.cu",
+           "ntt_addsub":
+               "gpu_groth16_prover_3x_tpu_torch/csrc/ntt_addsub.cu"}
 COUNTERS = PAS.launch_counters()
 SCAN_KERNELS = ("mont_mul", "ec_dbl", "ec_mixed_add")
 MSM_STRAUS = "MSMs (device: Straus tables + Pippenger A/H)"
@@ -357,6 +365,53 @@ def check_mont_mul(rng, n: int, results: dict) -> None:
         results["mont_mul", ctx.prime_id] = dict(
             ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
             max_abs_err=err, shape=f"(24, {n})",
+            config=f"prime {ctx.prime_id}")
+
+
+def addsub_pair(ctx, fn, a, b):
+    s, d = torch.empty_like(a), torch.empty_like(a)
+    fn(ctx, a, b, s, d)
+    return s, d
+
+
+def check_ntt_addsub(rng, n: int, results: dict) -> None:
+    """The NTT add/sub kernel against its plain version at n lanes, edge
+    words in front (a carry or borrow through every word), and on the
+    strided even half of a middle level of a 2n transform; kernel and
+    plain timed on the contiguous form (a level's bytes: E and t read,
+    two halves written)."""
+    for p in (MNT4753.fr.p, MNT4753.fq.p):
+        ctx = L.MontCtx(p)
+        edges = [(0, 0), (1, 1), (p - 1, p - 1), (p - 1, 1), (0, 1),
+                 (1, 0), ((1 << 736) - 1, 1), (1, (1 << 736) - 1),
+                 (1 << 736, 1)]
+        a = rand_canon(rng, p, (n,))
+        b = rand_canon(rng, p, (n,))
+        a[:, :len(edges)] = L.ints_to_words([u for u, _ in edges])
+        b[:, :len(edges)] = L.ints_to_words([v for _, v in edges])
+        at, bt = torch.from_numpy(a).to(DEV), torch.from_numpy(b).to(DEV)
+        got = addsub_pair(ctx, NT.add_sub, at, bt)
+        want = addsub_pair(ctx, NT.add_sub_plain, at, bt)
+        err = require_equal(f"ntt_addsub prime {ctx.prime_id}", got, want)
+        # a middle level of the 2^20 transform: (24, 1, 2^9, 2, 2^9)
+        v = at.reshape(L.NWORDS, 1, 1 << 9, 2, -1)
+        E, t = v[:, :, :, 0], v[:, :, :, 1].contiguous()
+        lvl = [torch.empty((L.NWORDS, 1, 2) + tuple(E.shape[2:]),
+                           dtype=torch.int32, device=DEV) for _ in range(2)]
+        NT.add_sub(ctx, E, t, lvl[0][:, :, 0], lvl[0][:, :, 1])
+        NT.add_sub_plain(ctx, E, t, lvl[1][:, :, 0], lvl[1][:, :, 1])
+        require_equal(f"ntt_addsub prime {ctx.prime_id} strided level",
+                      lvl[0], lvl[1])
+        del want, lvl, v, E, t
+        ms = cuda_ms(lambda: addsub_pair(ctx, NT.add_sub, at, bt), 20)
+        plain = cuda_ms(lambda: addsub_pair(ctx, NT.add_sub_plain, at, bt),
+                        1)
+        bnd, by = bound_ms(0, n * 4 * 96)
+        log(f"ntt_addsub prime {ctx.prime_id} n={n}: kernel {ms:.4f} ms, "
+            f"plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})")
+        results["ntt_addsub", ctx.prime_id] = dict(
+            ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+            max_abs_err=err, shape=f"(24, {n}) x 2",
             config=f"prime {ctx.prime_id}")
 
 
@@ -724,19 +779,28 @@ def full_proof(curve, log2: int, workdir: str, rng, plain_h: bool = True):
     log(f"  launches: {launches}")
     log_timer("in the proof", in_proof)
     require_launched(f"{curve.name} proof", launches, PATH_KERNELS)
+    if laps.get("#ntt.butterflies") != 7 * log2 \
+            or launches["ntt_addsub"] != 7 * log2 + 1:
+        raise AssertionError(
+            f"{curve.name} 2^{log2}: #ntt.butterflies "
+            f"{laps.get('#ntt.butterflies')}, ntt_addsub launches "
+            f"{launches['ntt_addsub']}; want {7 * log2} and one more")
 
     h_k, = keep_h.outs
     want = known_proof(curve, ks, logs, values[0], h_k[1].numpy(), values[4])
     if plain_h:
         dev_in = [torch.from_numpy(a).to(DEV) for a in values[1:4]]
-        h_p = compute_h(NttPlan(curve.fr, 1 << log2, DEV,
-                                mul=MM.mont_mul_plain), *dev_in)
+
+        def plain_plan():
+            return NttPlan(curve.fr, 1 << log2, DEV, mul=MM.mont_mul_plain,
+                           add_sub=NT.add_sub_plain)
+        h_p = compute_h(plain_plan(), *dev_in)
         require_equal(f"{curve.name} H pipeline", h_k,
                       tuple(t.cpu() for t in h_p))
         # the plain add/sub in many column blocks, as at 2^24 and 2^25
         block, NT.COL_BLOCK = NT.COL_BLOCK, H_BLOCK_CHECK
         try:
-            h_b = compute_h(NttPlan(curve.fr, 1 << log2, DEV), *dev_in)
+            h_b = compute_h(plain_plan(), *dev_in)
         finally:
             NT.COL_BLOCK = block
         require_equal(f"{curve.name} H pipeline in blocks of "
@@ -2221,7 +2285,8 @@ def check_ptxas() -> None:
         log(f"ptxas {unit} {kern}: {regs} registers, {stack} B stack, "
             f"{spill} B spill stores")
         lane_unit = unit.startswith(("group", "msm_scan"))
-        if lane_unit and unit[-1] in "012" and (stack or spill):
+        if (lane_unit and unit[-1] in "012" or unit == "ntt_addsub") \
+                and (stack or spill):
             raise AssertionError(f"{unit} {kern}: {stack} B of stack, "
                                  f"{spill} B of spill stores")
 
@@ -2264,6 +2329,7 @@ def main() -> int:
 
     results = {}
     check_mont_mul(rng, 1 << 20, results)
+    check_ntt_addsub(rng, 1 << 19, results)
     check_group(rng, 1 << 16, results)
     # B: the scan widths of the MNT4753 2^20 proof (G1: 2 windows x 2^15
     # chunks; G2: 6 windows x 8193 chunks) and of the MNT6753 2^15 proof
@@ -2324,7 +2390,7 @@ def main() -> int:
             os.chdir(cwd)
     log(f"smoke wall time: {time.time() - t0:.1f} s, the build included")
 
-    # The first four entries: the kernels of the path on the MNT4753 2^20
+    # The first five entries: the kernels of the path on the MNT4753 2^20
     # proof (G1 shapes; mont_mul over its Fr), launches from that proof.
     kernels = []
     for name in PATH_KERNELS:
@@ -2367,7 +2433,7 @@ def main() -> int:
                                         run["in_proof"]))
     # ec_add launches per configuration in the table proofs: the A|H
     # Pippenger pass plus the Straus trees
-    for entry, cfg in zip(kernels[4:], (1, 1, 2, 2, 3, 3)):
+    for entry, cfg in zip(kernels[len(PATH_KERNELS):], (1, 1, 2, 2, 3, 3)):
         if entry["name"] != "ec_add":
             continue
         tab, key = ((tab4, "launches_table_proof_2p20") if cfg < 2 else

@@ -1,15 +1,16 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
 Each compilation unit gets its own `nvcc` process, all started together,
-to an object for sm_90a: `mont_mul.cu` once, and `group.cu` and
-`msm_scan.cu` once per group configuration (-DG16_CFG=0..3, entry points
-`g16_ec_op_<cfg>` and `g16_msm_scan_<cfg>`; each configuration fixes
-its own lanes per element at compile time, csrc/field_coop.cuh), so the
-deg-3 tower code does not serialise the build.  One link step makes
-`libg16kernels.so`, which is loaded with ctypes (plain C entry points, no
-PyTorch headers).  The build runs at first use into `_build/<hash>/`
-beside the package (listed in .gitignore), keyed by the sources, the
-generated constants header and the flags.  `-Xptxas -v` reports each
+to an object for sm_90a: `mont_mul.cu` and `ntt_addsub.cu` once, and
+`group.cu` and `msm_scan.cu` once per group configuration (-DG16_CFG=0..3,
+entry points `g16_ec_op_<cfg>` and `g16_msm_scan_<cfg>`; each
+configuration fixes its own lanes per element at compile time,
+csrc/field_coop.cuh), so the deg-3 tower code does not serialise the
+build.  One link step makes `libg16kernels.so`, which is loaded with
+ctypes (plain C entry points, no PyTorch headers).  The build runs at
+first use into `_build/<hash>/` beside the package (listed in
+.gitignore), keyed by the sources, the generated constants header and
+the flags.  `-Xptxas -v` reports each
 kernel's registers and spills; `ptxas_report()` returns that text and
 `ptxas_summary()` the figures per kernel.
 
@@ -32,10 +33,10 @@ from ..curves import constants as K
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("mont_mul.cu", "group.cu", "msm_scan.cu")
+SOURCES = ("mont_mul.cu", "ntt_addsub.cu", "group.cu", "msm_scan.cu")
 HEADERS = ("field.cuh", "field_coop.cuh")
 CFGS = range(4)     # group configurations (ops/ec.py CurveOps.cfg)
-UNITS = (("mont_mul.cu", None),
+UNITS = (("mont_mul.cu", None), ("ntt_addsub.cu", None),
          *(("group.cu", k) for k in CFGS),
          *(("msm_scan.cu", k) for k in CFGS))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -168,6 +169,9 @@ def load(out_dir: Path) -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.g16_mont_mul.argtypes = [i32, vp, vp, vp, i64, vp]
     lib.g16_mont_mul.restype = i32
+    lib.g16_ntt_addsub.argtypes = [i32, i32, vp, vp, vp, vp,
+                                   ctypes.POINTER(i64), vp]
+    lib.g16_ntt_addsub.restype = i32
     for k in CFGS:
         ec = getattr(lib, f"g16_ec_op_{k}")
         ec.argtypes = [i32, vp, vp, vp, vp, i64, vp]

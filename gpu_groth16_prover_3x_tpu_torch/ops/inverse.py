@@ -4,8 +4,8 @@ Turns projective points into the affine rows of the table file.  It
 replaces two routes of the JAX package's models/preprocess_device.py:
 the host's native batch_affine for G1 and a Python inversion per point
 for G2.  Every product is a launch of the mont_mul kernel
-(ops/mont_mul.py); additions and subtractions are the plain word math the
-NTT uses (ops/ntt.py add_words / sub_words).
+(ops/mont_mul.py); additions and subtractions are the NTT's
+(ops/ntt.py add_words / sub_words: the add/sub kernel on a card).
 
   * Fq: Montgomery's batch trick as a product tree.  Up the tree, pairs
     of elements multiply (an odd element rides up unchanged); the root
@@ -23,7 +23,7 @@ NTT uses (ops/ntt.py add_words / sub_words).
 Elements are canonical Montgomery words, an Fq^deg element (deg, 24, *B)
 coefficient 0 first.  `mul` is the Montgomery product (default mont_mul,
 looked up at each call); passing ops.mont_mul.mont_mul_plain gives the
-plain version of every function here.
+plain version of every product here.
 """
 
 import torch

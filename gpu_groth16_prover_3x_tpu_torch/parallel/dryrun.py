@@ -12,9 +12,10 @@ from ..curves.constants import CURVES
 from ..ops.group_kernels import EC_ADD, EC_DBL, EC_MIXED_ADD
 from ..ops.mont_mul import MONT_MUL
 from ..ops.msm import MSM_SCAN
+from ..ops.ntt import NTT_ADDSUB
 from .prover import prove_sharded
 
-COUNTERS = (MONT_MUL, EC_ADD, EC_DBL, EC_MIXED_ADD, MSM_SCAN)
+COUNTERS = (MONT_MUL, EC_ADD, EC_DBL, EC_MIXED_ADD, MSM_SCAN, NTT_ADDSUB)
 
 
 def prove_rank(rank, curve_name, params, inputs, device) -> dict:

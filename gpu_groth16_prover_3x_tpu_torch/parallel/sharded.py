@@ -30,7 +30,7 @@ from ..ops.ec import CurveOps
 from ..ops.group_kernels import ec_add
 from ..ops.mont_mul import mont_mul
 from ..ops.msm import DEFAULT_CHUNK, msm_window_sums_streamed
-from ..ops.ntt import ntt, power_table, scale
+from ..ops.ntt import add_sub, ntt, power_table, scale
 from ..utils import opcount
 
 
@@ -168,7 +168,7 @@ class ShardedNttPlan:
                   this rank's slice of g^i / g^-i (the H pipeline,
                   ops/ntt.compute_h with sharded_ntt as its transform).
 
-    `ctx` and `mul` make it a plan for ops/ntt.ntt."""
+    `ctx`, `mul` and `add_sub` make it a plan for ops/ntt.ntt."""
 
     def __init__(self, fp: FieldParams, n: int, ndev: int, rank: int,
                  device):
@@ -182,6 +182,7 @@ class ShardedNttPlan:
         self.device = torch.device(device)
         self.ctx = L.MontCtx(fp.p)
         self.mul = mont_mul
+        self.add_sub = add_sub
         p = fp.p
         omega = get_root_of_unity(fp, n)
         self.tw1, self.tw2, self.tw_mat = {}, {}, {}

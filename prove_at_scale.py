@@ -372,9 +372,10 @@ def launch_counters() -> dict:
     from gpu_groth16_prover_3x_tpu_torch.ops import group_kernels as GK
     from gpu_groth16_prover_3x_tpu_torch.ops import mont_mul as MM
     from gpu_groth16_prover_3x_tpu_torch.ops import msm as M
+    from gpu_groth16_prover_3x_tpu_torch.ops import ntt as NT
     return {"mont_mul": MM.MONT_MUL, "ec_add": GK.EC_ADD,
             "ec_dbl": GK.EC_DBL, "ec_mixed_add": GK.EC_MIXED_ADD,
-            "msm_scan": M.MSM_SCAN}
+            "msm_scan": M.MSM_SCAN, "ntt_addsub": NT.NTT_ADDSUB}
 
 
 def start_run(dev) -> None:
@@ -500,7 +501,7 @@ SETUP_LAPS = ("setup host part (R1CS, QAP, scalar vectors)",
 QUERIES = ("A", "B1", "B2", "L", "H")
 # the kernels a command must launch on a card
 SETUP_KERNELS = ("mont_mul", "ec_add", "ec_mixed_add")
-PATH_KERNELS = ("mont_mul", "ec_add", "ec_dbl", "msm_scan")
+PATH_KERNELS = ("mont_mul", "ec_add", "ec_dbl", "msm_scan", "ntt_addsub")
 BUILD_KERNELS = ("mont_mul", "ec_mixed_add")
 PIPPENGER_DIR = "pippenger"     # holds no table file
 # the environment that could switch a proof off the path a step drives

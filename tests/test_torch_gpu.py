@@ -20,6 +20,7 @@ from gpu_groth16_prover_3x_tpu_torch.curves.constants import (CURVES,
 from gpu_groth16_prover_3x_tpu_torch.ops import group_kernels as GK
 from gpu_groth16_prover_3x_tpu_torch.ops import limbs as L
 from gpu_groth16_prover_3x_tpu_torch.ops import msm as M
+from gpu_groth16_prover_3x_tpu_torch.ops import ntt as NT
 from gpu_groth16_prover_3x_tpu_torch.ops.ec import get_curve_ops
 from gpu_groth16_prover_3x_tpu_torch.ops.mont_mul import (MONT_MUL,
                                                           mont_mul,
@@ -58,6 +59,105 @@ def test_mont_mul_kernel_vs_plain(p):
     a[:, 0] = 0
     a[:, 1] = b[:, 1] = torch.from_numpy(L.int_to_words(p - 1)).to(dev)
     assert torch.equal(mont_mul(ctx, a, b), mont_mul_plain(ctx, a, b))
+
+
+def addsub_edges(p: int) -> list:
+    """Operand pairs of the add/sub's edges: 0, 1, p - 1, a = b, t = 0,
+    E = 0 with t != 0 (0 - 1 + p carries through all 24 words), and
+    carries and borrows through 23 words."""
+    x = 0x1234_5678_9ABC_DEF0 << 600
+    ones = (1 << 736) - 1
+    return [(0, 0), (1, 1), (p - 1, p - 1), (p - 1, 1), (1, p - 1),
+            (x, x), (x, 0), (0, x), (0, 1), (1, 0), (ones, 1), (1, ones),
+            (1 << 736, 1), (p - 1, ones)]
+
+
+def addsub_operands(rng, p: int, n: int):
+    """(24, n) random canonical words with the edge pairs in front."""
+    a, b = canon(rng, p, n), canon(rng, p, n)
+    edges = addsub_edges(p)
+    a[:, :len(edges)] = torch.from_numpy(L.ints_to_words(
+        [u for u, _ in edges]))
+    b[:, :len(edges)] = torch.from_numpy(L.ints_to_words(
+        [v for _, v in edges]))
+    return a, b
+
+
+def addsub_both(fn, ctx, a, b):
+    s, d = torch.empty_like(a), torch.empty_like(a)
+    fn(ctx, a, b, s, d)
+    return s, d
+
+
+@pytest.mark.parametrize("n", [4099, 1 << 16])
+@pytest.mark.parametrize("p", [MNT4753.fr.p, MNT4753.fq.p],
+                         ids=["P_A", "P_B"])
+def test_ntt_addsub_kernel_vs_plain(p, n):
+    """Both halves in one launch, each half alone, and in place, against
+    the plain version, at a width that is and one that is not a multiple
+    of the block (256)."""
+    dev = card()
+    rng = np.random.default_rng(11)
+    ctx = L.MontCtx(p)
+    a, b = (t.to(dev) for t in addsub_operands(rng, p, n))
+    want = addsub_both(NT.add_sub_plain, ctx, a, b)
+    launches = NT.NTT_ADDSUB.launches
+    assert same(addsub_both(NT.add_sub, ctx, a, b), want)
+    assert NT.NTT_ADDSUB.launches == launches + 1
+    assert torch.equal(NT.add_words(ctx, a, b), want[0])
+    assert torch.equal(NT.sub_words(ctx, a, b), want[1])
+    c = a.clone()
+    NT.sub_words(ctx, c, b, out=c)
+    assert torch.equal(c, want[1])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("p", [MNT4753.fr.p, MNT4753.fq.p],
+                         ids=["P_A", "P_B"])
+@pytest.mark.parametrize("B,mp,h", [(1, 8, 256), (3, 64, 4), (2, 1000, 1)])
+def test_ntt_addsub_kernel_on_strided_level(p, B, mp, h):
+    """A middle level's form: E the strided even half of (24, B, mp, 2, h)
+    words (batched, B transforms), both results into the two halves of
+    (24, B, 2, mp, h), against the plain version."""
+    dev = card()
+    rng = np.random.default_rng(12)
+    ctx = L.MontCtx(p)
+    v = canon(rng, p, B * mp * 2 * h).reshape(24, B, mp, 2, h).to(dev)
+    E, t = v[:, :, :, 0], v[:, :, :, 1].contiguous()
+    got = torch.zeros((24, B, 2, mp, h), dtype=torch.int32, device=dev)
+    want = torch.zeros_like(got)
+    NT.add_sub(ctx, E, t, got[:, :, 0], got[:, :, 1])
+    NT.add_sub_plain(ctx, E, t, want[:, :, 0], want[:, :, 1])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("curve", [MNT4753, MNT6753], ids=["mnt4", "mnt6"])
+def test_ntt_and_compute_h_kernel_plan_vs_plain_plan(curve):
+    """ntt / intt on (24, n) and (24, B, n) and compute_h at 2^12 on the
+    default plan equal an all-plain plan word for word; the add/sub
+    launches once a level and once for a*b - c."""
+    from gpu_groth16_prover_3x_tpu_torch.utils import profiling as TP
+    dev = card()
+    rng = np.random.default_rng(13)
+    fr = CURVES[curve.name].fr
+    n = 1 << 12
+    plan = NT.NttPlan(fr, n, dev)
+    plain = NT.NttPlan(fr, n, dev, mul=mont_mul_plain,
+                       add_sub=NT.add_sub_plain)
+    x = canon(rng, fr.p, n).to(dev)
+    xb = canon(rng, fr.p, 3, n).to(dev)
+    assert torch.equal(NT.ntt(plan, x, plan.tw_fwd),
+                       NT.ntt(plain, x, plain.tw_fwd))
+    assert torch.equal(NT.intt(plan, x), NT.intt(plain, x))
+    assert torch.equal(NT.ntt(plan, xb, plan.tw_inv),
+                       NT.ntt(plain, xb, plain.tw_inv))
+    ins = [canon(rng, fr.p, n).to(dev) for _ in range(3)]
+    TP.clear_laps()
+    launches = NT.NTT_ADDSUB.launches
+    got = NT.compute_h(plan, *ins)
+    assert NT.NTT_ADDSUB.launches - launches == 7 * 12 + 1
+    assert TP.last_laps()["#ntt.butterflies"] == 7 * 12
+    assert same(got, NT.compute_h(plain, *ins))
 
 
 @pytest.mark.parametrize("curve,group", GROUPS, ids=IDS)
