@@ -450,7 +450,11 @@ def msm_window_sums_streamed(cops: CurveOps, keys, rows,
     reuses.  (The scan's carry chain reads `prop.any()` on the host once
     per step; the copy is issued after those reads.)  There is no other
     way for host rows onto a card: a failed copy or launch raises.  On
-    the CPU the same block loop slices the host rows in place."""
+    the CPU the same block loop slices the host rows in place.
+
+    Each block's msm_window_sums (a single pass's too) is the span
+    "msm.block", counted under "#msm.blocks"; each combine of two
+    blocks' window sums is the span "msm.combine" (utils/profiling.py)."""
     n = rows.shape[0]
     dev = keys.device
     host = not torch.is_tensor(rows) or rows.device.type == "cpu"
@@ -459,8 +463,8 @@ def msm_window_sums_streamed(cops: CurveOps, keys, rows,
     elif not host and rows.device != dev:
         raise ValueError(f"rows on {rows.device}, keys on {dev}")
     if not host and (block_points is None or block_points >= n):
-        return msm_window_sums(cops, keys, rows, chunk_s, c, seg_ids,
-                               num_msms, signed)
+        return _block_window_sums(cops, keys, rows, chunk_s, c, seg_ids,
+                                  num_msms, signed)
     nblk, B = block_grid(n, chunk_s, block_points)
     n_full = nblk * B
     if n_full > n:
@@ -481,15 +485,30 @@ def msm_window_sums_streamed(cops: CurveOps, keys, rows,
             torch.cuda.current_stream(dev).wait_event(done)
         else:
             blk = rows[lo:lo + B]
-        ws = msm_window_sums(
+        ws = _block_window_sums(
             cops, keys[:, lo:lo + B].contiguous(), blk, chunk_s, c,
             None if seg_ids is None else seg_ids[lo:lo + B], num_msms,
             signed)
         del blk
         if host and i + 1 < nblk:
             pending = blocks.issue(i + 1)
-        acc = ws if acc is None else combine_window_sums(cops, acc, ws)
+        if acc is None:
+            acc = ws
+        else:
+            with span("msm.combine"):
+                acc = combine_window_sums(cops, acc, ws)
     return acc
+
+
+def _block_window_sums(cops: CurveOps, keys, rows, chunk_s, c, seg_ids,
+                       num_msms, signed):
+    """msm_window_sums of one block of msm_window_sums_streamed (the one
+    block of a single pass too): the span "msm.block", counted under
+    "#msm.blocks"."""
+    count("msm.blocks")
+    with span("msm.block"):
+        return msm_window_sums(cops, keys, rows, chunk_s, c, seg_ids,
+                               num_msms, signed)
 
 
 def msm_device(cops: CurveOps, host_group, scalars, points,
