@@ -7,7 +7,10 @@ Phases (any failure exits non-zero before the result line):
      print the ptxas register/spill report, the card's name and power
      limit;
   2. hold every kernel against its plain PyTorch version on the card, on
-     random canonical inputs from a numpy seed: exact equality; time the
+     random canonical inputs from a numpy seed: exact equality (the bucket
+     scan's run totals where em_valid is set, its other outputs in full,
+     and the warp-steps that doubled and converted; also on rows tiled
+     from small multiples k * G, where some steps must double); time the
      group kernels also at the widths of the halving reduction's first
      level in the MNT4753 2^20 proof (G1 192 x 2^14 lanes, Fq2 48 x 2^14),
      the NTT add/sub at the 2^20 half level (2^19 lanes, both primes, the
@@ -206,8 +209,8 @@ from gpu_groth16_prover_3x_tpu_torch.utils import \
     serialization as SER  # noqa: E402
 from gpu_groth16_prover_3x_tpu_torch.utils.synthetic import (  # noqa: E402
     KS, NBASE, affine_words, expected_proof, input_arrays, input_values,
-    known_proof, params_arrays, query_logs, rand_canon, read_proof,
-    write_input, write_synthetic)
+    known_proof, multiples_rows, params_arrays, query_logs, rand_canon,
+    read_proof, write_input, write_synthetic)
 
 import __graft_entry_torch__ as GE  # noqa: E402
 import prove_at_scale as PAS  # noqa: E402
@@ -479,13 +482,25 @@ def check_group(rng, n: int, results: dict) -> None:
         del P, Q
 
 
-def scan_inputs(rng, cops, S: int, B: int, nrows: int):
-    rows = np.stack([rand_canon(rng, cops.p, (nrows,))
-                     for _ in range(2 * cops.deg)])     # (2deg, 24, nrows)
-    rows[cops.deg:, :, rng.random(nrows) < 0.05] = 0     # infinity rows
-    rows = np.ascontiguousarray(
-        rows.reshape(2 * cops.deg * L.NWORDS, nrows).T)
-    step = rng.integers(0, 4, size=(S, B)) * (rng.random((S, B)) < 0.4)
+def scan_inputs(rng, cops, S: int, B: int, nrows: int, base=None,
+                change: float = 0.4):
+    """Rows, sorted indices, keys and signs of a scan launch.  The rows are
+    random canonical coordinates (points off the curve; the formulas are
+    polynomials, so kernel and plain version agree on them too), or, with
+    `base`, the rows of `base` tiled: points on the curve that repeat, so
+    that an accumulator meets its own row (the doubling) and its
+    negation.  The key changes at a step with probability 3/4 * change
+    (0.3 by default; the main path's runs are about 32 points long)."""
+    if base is None:
+        rows = np.stack([rand_canon(rng, cops.p, (nrows,))
+                         for _ in range(2 * cops.deg)])  # (2deg, 24, nrows)
+        rows[cops.deg:, :, rng.random(nrows) < 0.05] = 0  # infinity rows
+        rows = np.ascontiguousarray(
+            rows.reshape(2 * cops.deg * L.NWORDS, nrows).T)
+    else:
+        rows = np.ascontiguousarray(np.resize(base, (nrows, base.shape[1])))
+        rows[rng.random(nrows) < 0.05, cops.deg * L.NWORDS:] = 0
+    step = rng.integers(0, 4, size=(S, B)) * (rng.random((S, B)) < change)
     step[:, ::13] = 0                                   # uniform chunks
     keys = np.cumsum(step, 0).astype(np.int32)
     idx = rng.integers(0, nrows, size=(S, B)).astype(np.int32)
@@ -493,34 +508,101 @@ def scan_inputs(rng, cops, S: int, B: int, nrows: int):
     return rows, idx, keys, signs
 
 
+def scan_defined(out):
+    """A scan's outputs where its contract defines them: em only where
+    em_valid is set (zero elsewhere); em_valid, tail, first and haschg in
+    full."""
+    em, valid, tail, first, chg = out
+    return (torch.where(valid, em, torch.zeros_like(em)), valid, tail,
+            first, chg)
+
+
+def scan_counts(cops, fn):
+    """fn()'s output and the warp-steps in which its scans doubled and
+    converted (ops/msm.scan_tally)."""
+    t0 = M.scan_tally(DEV)
+    out = fn()
+    t1 = M.scan_tally(DEV)
+    return out, (t1[0] - t0[0], t1[1] - t0[1])
+
+
+# small multiples k * G, k = 3 + 7j, that the second input set of the scan
+# check tiles: few enough that a run meets its own row
+SCAN_MULTIPLES = 8
+
+
 def check_scan(rng, S: int, widths: dict, results: dict) -> None:
+    """The scan kernel against its plain version: em where em_valid is set,
+    the other outputs in full, and the warp-steps that doubled and
+    converted; on random coordinates (timed, with and without signs) and
+    on rows tiled from small multiples, where the doubling must run.  Also
+    timed on random rows in runs of about 32 points."""
     for (curve, group), B in widths.items():
         cops = get_curve_ops(curve, group)
-        rows, idx, keys, signs = scan_inputs(rng, cops, S, B, 4 * B)
+        base = multiples_rows(curve, group, KS[:SCAN_MULTIPLES])
+        shares = {}
+        for name, rows_of in (("random", None), ("multiples", base)):
+            rows, idx, keys, signs = scan_inputs(rng, cops, S, B, 4 * B,
+                                                 rows_of)
+            rt, it, kt, st = (torch.from_numpy(a).to(DEV)
+                              for a in (rows, idx, keys, signs))
+            got, tk = scan_counts(
+                cops, lambda: M.msm_scan(cops, rt, it, kt, st))
+            want, tp = scan_counts(
+                cops, lambda: M.msm_scan_plain(cops, rt, it, kt, st))
+            what = f"msm_scan cfg {cops.cfg} {name}"
+            err = require_equal(what, scan_defined(got), scan_defined(want))
+            if tk != tp:
+                raise AssertionError(f"{what}: warp-steps that doubled and "
+                                     f"converted {tk}, plain {tp}")
+            warp_steps = -(-B // (32 // M.CHUNK_LANES[cops.cfg])) * (S - 1)
+            shares[name] = tuple(v / warp_steps for v in tk)
+            if name == "multiples" and tk[0] == 0:
+                raise AssertionError(f"{what}: no step doubled")
+            if name == "random":
+                # unsigned digits: no sign array
+                err = max(err, require_equal(
+                    f"{what} unsigned",
+                    scan_defined(M.msm_scan(cops, rt, it, kt)),
+                    scan_defined(M.msm_scan_plain(cops, rt, it, kt))))
+                ms = cuda_ms(lambda: M.msm_scan(cops, rt, it, kt, st), 3)
+                plain = cuda_ms(
+                    lambda: M.msm_scan_plain(cops, rt, it, kt, st), 1)
+                deg = cops.deg
+                inf_row = np.all(rows[:, deg * 24:] == 0, axis=1)
+                adds = int(np.sum((keys[1:] == keys[:-1])
+                                  & ~inf_row[idx[1:]]))
+                nbytes = S * B * (2 * deg * 96 + 9) + (S - 1) * B * (
+                    3 * deg * 96 + 1) + B * (2 * 3 * deg * 96 + 1)
+                bnd, by = bound_ms(adds * FQ_MULS["mixed_add"][deg]
+                                   * MADS_PER_FQ_MUL, nbytes)
+            else:
+                ms_mult = cuda_ms(
+                    lambda: M.msm_scan(cops, rt, it, kt, st), 3)
+        # timed alone: random rows in runs of about 32 points, as the MNT4753
+        # 2^20 proof's 2^15 signed buckets make them
+        rows, idx, keys, signs = scan_inputs(rng, cops, S, B, 4 * B,
+                                             change=1 / 24)
         rt, it, kt, st = (torch.from_numpy(a).to(DEV)
                           for a in (rows, idx, keys, signs))
-        got = M.msm_scan(cops, rt, it, kt, st)
-        want = M.msm_scan_plain(cops, rt, it, kt, st)
-        err = require_equal(f"msm_scan cfg {cops.cfg}", got, want)
-        # unsigned digits: no sign array
-        err = max(err, require_equal(f"msm_scan cfg {cops.cfg} unsigned",
-                                     M.msm_scan(cops, rt, it, kt),
-                                     M.msm_scan_plain(cops, rt, it, kt)))
-        ms = cuda_ms(lambda: M.msm_scan(cops, rt, it, kt, st), 3)
-        plain = cuda_ms(lambda: M.msm_scan_plain(cops, rt, it, kt, st), 1)
-        deg = cops.deg
-        inf_row = np.all(rows[:, deg * 24:] == 0, axis=1)
-        adds = int(np.sum((keys[1:] == keys[:-1]) & ~inf_row[idx[1:]]))
-        nbytes = S * B * (2 * deg * 96 + 9) + (S - 1) * B * (
-            3 * deg * 96 + 1) + B * (2 * 3 * deg * 96 + 1)
-        bnd, by = bound_ms(adds * FQ_MULS["mixed_add"][deg]
-                           * MADS_PER_FQ_MUL, nbytes)
+        ms_runs, br = scan_counts(
+            cops, lambda: cuda_ms(lambda: M.msm_scan(cops, rt, it, kt, st),
+                                  3))
+        warp_steps = -(-B // (32 // M.CHUNK_LANES[cops.cfg])) * (S - 1)
+        shares["runs of 32"] = tuple(v / (4 * warp_steps) for v in br)
+        del rt, it, kt, st
         log(f"msm_scan {curve.name} {group} S={S} B={B}: kernel {ms:.2f} "
-            f"ms, plain {plain:.1f} ms, bound {bnd:.3f} ms ({by}), "
-            f"{adds} mixed adds")
+            f"ms (multiples {ms_mult:.2f}, runs of 32 {ms_runs:.2f}), plain "
+            f"{plain:.1f} ms, bound "
+            f"{bnd:.3f} ms ({by}), {adds} mixed adds; share of warp-steps "
+            f"doubling / converting: random {shares['random'][0]:.5f} / "
+            f"{shares['random'][1]:.5f}, multiples "
+            f"{shares['multiples'][0]:.5f} / {shares['multiples'][1]:.5f}, "
+            f"runs of 32 {shares['runs of 32'][1]:.5f}")
         results["msm_scan", cops.cfg] = dict(
             ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-            max_abs_err=err, shape=f"S={S}, B={B}", config=config_name(cops))
+            max_abs_err=err, shape=f"S={S}, B={B}", config=config_name(cops),
+            multiples_ms=ms_mult, runs32_ms=ms_runs, count_shares=shares)
 
 
 # -- phase 3: fixture sha gate --------------------------------------------------------
@@ -1566,7 +1648,8 @@ def captured_scan_check(args, label: str) -> dict:
     cfg_name = config_name(cops)
     shape = f"S={S}, B={B}, plain on {len(cols)} chunks"
     err = require_equal(f"msm_scan {cfg_name} ({label}, {shape})",
-                        [g[..., cols] for g in got], want)
+                        scan_defined([g[..., cols] for g in got]),
+                        scan_defined(want))
     return dict(name="msm_scan", config=cfg_name, shape=shape,
                 max_abs_err=err, ms=ms, plain_ms=plain)
 

@@ -1,11 +1,13 @@
 // Device field and group layer with one element spread over T lanes of a
 // warp (T = 4: 6 words a lane, T = 8: 3 words a lane): 753-bit Montgomery
 // form over 24 x 32-bit words (R = 2^768, the file format's radix), the
-// Fq2 / Fq3 towers, and the complete projective group law of
+// Fq2 / Fq3 towers, the complete projective group law of
 // Renes-Costello-Batina 2016 (EPRINT 2015/1060, Algorithms 1-3, general a)
-// exactly as the plain PyTorch version (ops/ec.py) writes it.  Every value
-// is canonical (< p) on entry and exit of every function, so a kernel and
-// its plain version agree word for word.
+// exactly as the plain PyTorch version (ops/ec.py) writes it, and the
+// bucket scan's XYZZ points (ops/ec.py CurveOps.xyzz_*; the step itself is
+// in csrc/msm_scan.cu).  Every value is canonical (< p) on entry and exit
+// of every function, so a kernel and its plain version agree word for
+// word.
 //
 // What bounds the group and scan kernels on the H100 is where the state
 // lives as much as the arithmetic: a projective point with the formula's
@@ -50,7 +52,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "g16_constants.cuh"  // G16_P, G16_NINV, G16_ONE, G16_B3 (generated)
+#include "g16_constants.cuh"  // G16_P, G16_NINV, G16_ONE, G16_B3, G16_A
 
 #define NW 24
 
@@ -128,6 +130,7 @@ struct Lane {
   uint32_t p[W];      // modulus
   uint32_t one[W];    // R mod p
   uint32_t b3[W];     // the nonzero coefficient of 3b (Montgomery form)
+  uint32_t a[W];      // the nonzero coefficient of a (Montgomery form)
   uint32_t ninv;      // -p^-1 mod 2^32
   int li;             // lane index within the group
   int gb;             // the group's first lane within the warp
@@ -142,6 +145,7 @@ struct Lane {
       p[w] = G16_P[P][li * W + w];
       one[w] = G16_ONE[P][li * W + w];
       b3[w] = G16_B3[cfg][li * W + w];
+      a[w] = G16_A[cfg][li * W + w];
     }
   }
 };
@@ -399,24 +403,25 @@ __device__ __forceinline__ void fp_mul_list(const Lane<P, T>& L, Fp<T>* r,
 // CFG 1: MNT4753 G2 over Fq2 (alpha 13); a = (26, 0), b3 = (0, c).
 // CFG 2: MNT6753 G1 over Fq = P_A; a = 11.
 // CFG 3: MNT6753 G2 over Fq3 (alpha 11); a = (0, 0, 11), b3 = (c, 0, 0).
+// IA: the index of a's nonzero coefficient (Lane::a).
 
 template <int CFG>
 struct Params;
 template <>
 struct Params<0> {
-  static constexpr int P = 1, D = 1, AL = 13;
+  static constexpr int P = 1, D = 1, AL = 13, IA = 0;
 };
 template <>
 struct Params<1> {
-  static constexpr int P = 1, D = 2, AL = 13;
+  static constexpr int P = 1, D = 2, AL = 13, IA = 0;
 };
 template <>
 struct Params<2> {
-  static constexpr int P = 0, D = 1, AL = 11;
+  static constexpr int P = 0, D = 1, AL = 11, IA = 0;
 };
 template <>
 struct Params<3> {
-  static constexpr int P = 0, D = 3, AL = 11;
+  static constexpr int P = 0, D = 3, AL = 11, IA = 2;
 };
 
 // -- extension tower Fq^D = Fq[v]/(v^D - AL), D in {1, 2, 3} -----------------------
@@ -430,7 +435,8 @@ struct Ext {
 template <int CFG, int T>
 struct Ops {
   static constexpr int P = Params<CFG>::P, D = Params<CFG>::D,
-                       AL = Params<CFG>::AL, W = NW / T;
+                       AL = Params<CFG>::AL, IA = Params<CFG>::IA,
+                       W = NW / T;
   using Ln = Lane<P, T>;
   using F = Fp<T>;
   using El = Ext<T, D>;
@@ -789,6 +795,39 @@ struct Ops {
     sub(L, R.X, m3, m5);
     add(L, R.Y, m1, m4);
     small<4>(L, R.Z, m6);
+  }
+
+  // -- XYZZ coordinates: the bucket scan's run accumulator (ops/ec.py
+  // CurveOps.xyzz_*) ------------------------------------------------------------------
+  // (X, Y, ZZ, ZZZ) stands for the affine point (X / ZZ, Y / ZZZ); ZZ = ZZZ
+  // = 0 is the identity.  The scan's step (csrc/msm_scan.cu) adds an
+  // affine row in 10 products.
+
+  struct Pz {
+    El X, Y, ZZ, ZZZ;
+  };
+
+  // R = (x, y, 1, 1), or the identity (1, 1, 0, 0) where `inf`
+  static __device__ __forceinline__ void xyzz_lift(const Ln& L, Pz& R,
+                                                   bool inf, const El& x,
+                                                   const El& y) {
+    El e1, e0;
+    one(L, e1);
+    zero(e0);
+    select(R.X, inf, e1, x);
+    select(R.Y, inf, e1, y);
+    select(R.ZZ, inf, e0, e1);
+    R.ZZZ = R.ZZ;
+  }
+
+  // R = (X ZZZ : Y ZZ : ZZ ZZZ), the identity as (0 : 1 : 0)
+  static __device__ __forceinline__ void xyzz_to_proj(const Ln& L, Pt& R,
+                                                      const Pz& A) {
+    const bool inf = is_zero(L, A.ZZ);
+    mul3(L, R.X, A.X, A.ZZZ, R.Y, A.Y, A.ZZ, R.Z, A.ZZ, A.ZZZ);
+    Pt id;
+    identity(L, id);
+    select(R, inf, id, R);
   }
 };
 

@@ -61,17 +61,21 @@ def constants_header() -> str:
     side cannot drift from the Python side.
 
     G16_P / G16_NINV / G16_ONE are indexed by prime id (0 = P_A, 1 = P_B).
-    G16_B3 is indexed by group config (0 = MNT4753 G1, 1 = MNT4753 G2,
-    2 = MNT6753 G1, 3 = MNT6753 G2): 3b for G1, and for G2 the single
-    nonzero coefficient c of 3*twist_b (MNT4753: (0, c); MNT6753:
-    (c, 0, 0)), all in Montgomery form."""
+    G16_B3 and G16_A are indexed by group config (0 = MNT4753 G1, 1 =
+    MNT4753 G2, 2 = MNT6753 G1, 3 = MNT6753 G2): 3b for G1, and for G2
+    the single nonzero coefficient c of 3*twist_b (MNT4753: (0, c);
+    MNT6753: (c, 0, 0)); a for G1, and for G2 the single nonzero
+    coefficient of twist_a (MNT4753: (26, 0); MNT6753: (0, 0, 11)); all
+    in Montgomery form."""
     R = 1 << 768
     primes = (K.P_A, K.P_B)
     m4, m6 = K.MNT4753, K.MNT6753
     b3 = (3 * m4.b % K.P_B, 3 * m4.twist_b[1] % K.P_B,
           3 * m6.b % K.P_A, 3 * m6.twist_b[0] % K.P_A)
     b3_p = (K.P_B, K.P_B, K.P_A, K.P_A)
+    a = (m4.a, m4.twist_a[0], m6.a, m6.twist_a[2])
     assert m4.twist_b[0] == 0 and m6.twist_b[1:] == (0, 0)
+    assert m4.twist_a[1] == 0 and m6.twist_a[:2] == (0, 0)
     lines = ["// generated by ops/build.py from curves/constants.py",
              "#pragma once",
              "static __constant__ uint32_t G16_P[2][24] = {"
@@ -83,6 +87,9 @@ def constants_header() -> str:
              + ", ".join(_words_literal(R % p) for p in primes) + "};",
              "static __constant__ uint32_t G16_B3[4][24] = {"
              + ", ".join(_words_literal(v * R % p) for v, p in zip(b3, b3_p))
+             + "};",
+             "static __constant__ uint32_t G16_A[4][24] = {"
+             + ", ".join(_words_literal(v * R % p) for v, p in zip(a, b3_p))
              + "};"]
     return "\n".join(lines) + "\n"
 
@@ -177,7 +184,9 @@ def load(out_dir: Path) -> ctypes.CDLL:
         ec.argtypes = [i32, vp, vp, vp, vp, i64, vp]
         scan = getattr(lib, f"g16_msm_scan_{k}")
         scan.argtypes = [vp, vp, vp, vp, i32, i64, vp, vp, vp, vp, vp, vp]
-        ec.restype = scan.restype = i32
+        tally = getattr(lib, f"g16_msm_scan_tally_{k}")
+        tally.argtypes = [vp]
+        ec.restype = scan.restype = tally.restype = i32
     lib.g16_error_string.argtypes = [i32]
     lib.g16_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,4 +1,5 @@
-"""Plain elliptic-curve group law: complete projective formulas.
+"""Plain elliptic-curve group law: complete projective formulas, and the
+bucket scan's XYZZ formulas.
 
 The PyTorch counterpart of gpu_groth16_prover_3x_tpu/ops/ec.py and the
 plain version of the group kernels (csrc/group.cu): the complete
@@ -10,7 +11,8 @@ each layer one stacked plain Montgomery multiply (FieldOps.mul_many).
 
 A point batch is a tensor (32, 3, deg, *batch) of canonical limbs
 (X, Y, Z, each an Fq^deg element), deg 1 for G1, 2 for MNT4753 G2 (Fq2)
-and 3 for MNT6753 G2 (Fq3).  The kernels take the word layout
+and 3 for MNT6753 G2 (Fq3).  The scan's run accumulator (csrc/msm_scan.cu)
+is an XYZZ point (32, 4, deg, *batch), `xyzz_*` below.  The kernels take the word layout
 (3*deg, 24, B) int32; `to_limb_point` / `from_limb_point` convert.
 """
 
@@ -140,6 +142,74 @@ class CurveOps:
     def select(self, mask, P, Q):
         """mask (*batch) True -> P, else Q."""
         return L.select(mask, P, Q)
+
+    # -- XYZZ coordinates: the bucket scan's run accumulator --------------------
+    #
+    # (X, Y, ZZ, ZZZ), a tensor (32, 4, deg, *batch), stands for the affine
+    # point (X / ZZ, Y / ZZZ); ZZ = ZZZ = 0 is the identity.  The scan only
+    # ever adds an affine row to it, which costs 10 products and no curve
+    # constant (csrc/field_coop.cuh has the same formulas).
+
+    def xyzz_identity(self, batch, device) -> torch.Tensor:
+        """(1, 1, 0, 0)."""
+        F = self.F
+        one, z = F.one(device), F.zero(device)
+        pt = torch.stack([one, one, z, z], 1)          # (32, 4, deg, 1)
+        return pt.expand((L.NLIMB, 4, self.deg) + tuple(batch)).contiguous()
+
+    def xyzz_lift(self, x, y):
+        """The affine (x, y) as (x, y, 1, 1)."""
+        one = self.F.one(x.device).expand_as(x)
+        return torch.stack([x, y, one, one], 1)
+
+    def xyzz_mixed_add(self, A, x2, y2):
+        """madd-2008-s: A + (x2, y2) and the mask P = R = 0.  Right for
+        every A but the identity and A == (x2, y2), which the mask marks
+        (A == -(x2, y2) gives ZZ = ZZZ = 0 by itself)."""
+        F = self.F
+        X1, Y1, ZZ1, ZZZ1 = A.unbind(1)
+        U2, S2 = F.mul_many([(x2, ZZ1), (y2, ZZZ1)])
+        P = F.sub(U2, X1)
+        R = F.sub(S2, Y1)
+        PP, RR = F.mul_many([(P, P), (R, R)])
+        PPP, Q, ZZ3 = F.mul_many([(P, PP), (X1, PP), (ZZ1, PP)])
+        X3 = F.sub(F.sub(RR, PPP), F.add(Q, Q))
+        m1, ZZZ3, m2 = F.mul_many([(Y1, PPP), (ZZZ1, PPP),
+                                   (R, F.sub(Q, X3))])
+        out = torch.stack([X3, F.sub(m2, m1), ZZ3, ZZZ3], 1)
+        return out, F.is_zero(P) & F.is_zero(R)
+
+    def xyzz_affine_dbl(self, x, y):
+        """mdbl-2008-s-1: 2 (x, y) for an affine point with y != 0, with
+        the curve's a."""
+        F = self.F
+        U = F.add(y, y)
+        V, XX = F.mul_many([(U, U), (x, x)])
+        W, S = F.mul_many([(U, V), (x, V)])
+        M = F.add(F.add(F.add(XX, XX), XX), F.const(self.a, x.device))
+        X3 = F.sub(F.mul(M, M), F.add(S, S))
+        m1, m2 = F.mul_many([(M, F.sub(S, X3)), (W, y)])
+        return torch.stack([X3, F.sub(m1, m2), V, W], 1)
+
+    def xyzz_add_row(self, A, x2, y2, inf):
+        """A + (x2, y2) for every A, `inf` (*batch) marking an infinite
+        row: the madd, the doubling of the row where A equals it, the row
+        where A is the identity, A where the row is infinite.  Returns the
+        sum and the lanes that took the doubling."""
+        out, eq = self.xyzz_mixed_add(A, x2, y2)
+        acc_inf = self.F.is_zero(A[:, 2])
+        dbl = eq & ~inf & ~acc_inf
+        if bool(dbl.any()):
+            out = torch.where(dbl, self.xyzz_affine_dbl(x2, y2), out)
+        out = torch.where(acc_inf, self.xyzz_lift(x2, y2), out)
+        return torch.where(inf, A, out), dbl
+
+    def xyzz_to_proj(self, A):
+        """(X ZZZ : Y ZZ : ZZ ZZZ), the identity as (0 : 1 : 0)."""
+        X, Y, ZZ, ZZZ = A.unbind(1)
+        pt = torch.stack(self.F.mul_many([(X, ZZZ), (Y, ZZ), (ZZ, ZZZ)]), 1)
+        inf = self.F.is_zero(ZZ)
+        return torch.where(inf, self.identity(inf.shape, A.device), pt)
 
 
 @lru_cache(maxsize=None)

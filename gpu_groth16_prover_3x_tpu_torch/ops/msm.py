@@ -11,8 +11,8 @@ Per block of windows:
      contiguous run;
   3. the bucket scan (csrc/msm_scan.cu): the sorted order is cut into
      chunks of S points, one group of 4 or 8 warp lanes per chunk walks
-     its S steps, accumulating same-key points with a mixed add and
-     emitting every finished run total;
+     its S steps, accumulating same-key points with an XYZZ mixed add
+     and emitting every finished run total as a projective point;
   4. runs that cross chunk borders are stitched by a Hillis-Steele carry
      chain over chunk tails (group add kernel), then boundary totals;
   5. run totals scatter into dense bucket tables (keys are unique);
@@ -31,6 +31,8 @@ the point at infinity).  Window sums are (3*deg, 24, nwin*num_msms)
 int32 projective points, column w*num_msms + msm.
 """
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -48,6 +50,9 @@ SCAN_POINTS = 1 << 23   # cap on points (x windows) per scan launch
 REDUCE_LANES = 1 << 23  # cap on bucket lanes per reduction pass
 
 MSM_SCAN = build.Kernel("msm_scan")
+# lanes of a scan chunk in each group configuration (csrc/field_coop.cuh
+# G16_T): a warp walks 32 // lanes chunks together
+CHUNK_LANES = {0: 4, 1: 8, 2: 4, 3: 8}
 
 
 # -- identity / layout helpers -----------------------------------------------------
@@ -63,19 +68,76 @@ def identity_words(cops: CurveOps, n: int, device) -> torch.Tensor:
 
 # -- kernel 3: the bucket scan -----------------------------------------------------
 
+_PLAIN_TALLY = {}   # device -> the plain version's (doubling, conversion)
+_LAUNCHED = set()   # devices on which the kernel ran
+_FOLDED = {}        # device -> the part of scan_tally already in the record
+
+
+def _device_key(device) -> str:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return str(device)
+
+
+def scan_tally(device) -> tuple:
+    """(doubling, conversion): the warp-steps of every bucket scan on
+    `device` so far in which some chunk of the warp doubled its row (the
+    accumulator equal to the row it adds) and in which some chunk
+    converted a run total (its run ending), the kernel's (a module
+    variable of each configuration, csrc/msm_scan.cu) and the plain
+    version's together.  Reads the device: the host waits."""
+    key = _device_key(device)
+    dbl, conv = _PLAIN_TALLY.get(key, (0, 0))
+    if key in _LAUNCHED:
+        lib = build.library()
+        buf = (ctypes.c_ulonglong * 2)()
+        with torch.cuda.device(torch.device(key)):
+            for k in build.CFGS:
+                build.check(getattr(lib, f"g16_msm_scan_tally_{k}")(
+                    ctypes.addressof(buf)))
+                dbl, conv = dbl + buf[0], conv + buf[1]
+    return dbl, conv
+
+
+def fold_scan_tally(device) -> None:
+    """Add the scans' tallies since the last fold to the record as
+    `#msm.scan_dbl` and `#msm.scan_convert` (utils/profiling.count).
+    finalize_windows calls it after its readback, where the host has
+    already waited for the card."""
+    key = _device_key(device)
+    if key not in _LAUNCHED and key not in _PLAIN_TALLY:
+        return
+    now = scan_tally(key)
+    was = _FOLDED.get(key, (0, 0))
+    _FOLDED[key] = now
+    count("msm.scan_dbl", now[0] - was[0])
+    count("msm.scan_convert", now[1] - was[1])
+
+
 def msm_scan_plain(cops: CurveOps, rows, idx, keys, signs=None):
     """Plain version of the scan kernel: a Python loop of S steps.
 
     rows (n, 2*deg*24) int32; idx, keys (S, B) int32 (step-major);
     signs (S, B) bool or None.  Returns (em (3*deg, 24, S-1, B),
     em_valid (S-1, B) bool, tail, first (3*deg, 24, B), haschg (B,) bool).
-    em[..., s-1, b] is the accumulator entering step s; it is a finished
-    run total where em_valid is set."""
+    Where em_valid[s-1, b] is set, em[..., s-1, b] is the run total that
+    ends before step s; elsewhere em is not defined (the kernel leaves it
+    unwritten, this version zero).  first is the total of the chunk's
+    first run where the chunk has a key change (else the identity), tail
+    the total of its last run.
+
+    The run accumulator is in XYZZ coordinates (CurveOps.xyzz_*): a step
+    adds the next affine row with madd-2008-s, and takes the doubling of
+    the row where the accumulator equals it; the identity plus a row is
+    the row.  Points leave as projective (X : Y : Z) words (xyzz_to_proj)
+    where a run ends and at the tail.  Adds the warp-steps that doubled
+    and that converted, counted as the kernel counts them, to the scan
+    tally (scan_tally)."""
     S, B = idx.shape
     deg, F = cops.deg, cops.F
     dev = rows.device
-    ident = cops.identity((B,), dev)
-    one = F.one(dev).expand(L.NLIMB, deg, B)
+    ident = cops.xyzz_identity((B,), dev)
 
     def lift(s):
         r = rows[idx[s].long()]                           # (B, 2*deg*24)
@@ -84,31 +146,53 @@ def msm_scan_plain(cops: CurveOps, rows, idx, keys, signs=None):
         inf = F.is_zero(y)                               # mask taken first
         if signs is not None:
             y = torch.where(signs[s], F.neg(y), y)
-        lifted = torch.where(inf, ident, torch.stack([x, y, one], 1))
+        lifted = torch.where(inf, ident, cops.xyzz_lift(x, y))
         return lifted, x, y, inf
 
+    groups = 32 // CHUNK_LANES[cops.cfg]         # chunks a warp walks
+    pad = -B % groups
+
+    def warp_steps(mask) -> int:
+        """Warps in which some chunk has `mask` set."""
+        m = torch.cat([mask, mask.new_zeros(pad)])
+        return int(m.reshape(-1, groups).any(1).sum())
+
     acc = lift(0)[0]
-    first = ident
+    first = identity_words(cops, B, dev)
     prevk = keys[0]
     chg = torch.zeros(B, dtype=torch.bool, device=dev)
-    em = torch.empty((3 * deg, L.NWORDS, S - 1, B), dtype=torch.int32,
+    em = torch.zeros((3 * deg, L.NWORDS, S - 1, B), dtype=torch.int32,
                      device=dev)
     em_valid = torch.empty((S - 1, B), dtype=torch.bool, device=dev)
+    n_dbl = n_conv = 0
     for s in range(1, S):
         same = keys[s] == prevk
-        em[:, :, s - 1] = from_limb_point(acc)
-        em_valid[s - 1] = ~same & chg
-        first = torch.where(~same & ~chg, acc, first)
+        end = ~same
+        em_valid[s - 1] = end & chg
+        if bool(end.any()):
+            n_conv += warp_steps(end)
+            pts = from_limb_point(cops.xyzz_to_proj(acc[..., end]))
+            done = chg[end]
+            em[:, :, s - 1, end & chg] = pts[..., done]
+            first[:, :, end & ~chg] = pts[..., ~done]
         lifted, x, y, inf = lift(s)
-        acc = torch.where(same, cops.mixed_add(acc, x, y, inf), lifted)
-        chg = chg | ~same
+        nxt, dbl = cops.xyzz_add_row(acc, x, y, inf)
+        n_dbl += warp_steps(dbl & same)
+        acc = torch.where(same, nxt, lifted)         # a new key restarts
+        chg = chg | end
         prevk = keys[s]
-    return em, em_valid, from_limb_point(acc), from_limb_point(first), chg
+    key = _device_key(dev)
+    was = _PLAIN_TALLY.get(key, (0, 0))
+    _PLAIN_TALLY[key] = (was[0] + n_dbl, was[1] + n_conv)
+    return (em, em_valid, from_limb_point(cops.xyzz_to_proj(acc)), first,
+            chg)
 
 
 def msm_scan(cops: CurveOps, rows, idx, keys, signs=None):
     """The bucket scan (see msm_scan_plain for the contract).  Counts
-    S * B `msm_scan_step` point-steps on either route (utils/opcount)."""
+    S * B `msm_scan_step` point-steps on either route (utils/opcount), and
+    adds the warp-steps that doubled and that converted to the device's
+    scan tally (scan_tally)."""
     S, B = idx.shape
     dev = rows.device
     if rows.dim() != 2 or rows.shape[1] != 2 * cops.deg * L.NWORDS:
@@ -141,6 +225,7 @@ def msm_scan(cops: CurveOps, rows, idx, keys, signs=None):
         em_valid.data_ptr(), tail.data_ptr(), first.data_ptr(),
         haschg.data_ptr(), build.stream_ptr(rows)))
     MSM_SCAN.launches += 1
+    _LAUNCHED.add(_device_key(dev))
     return em, em_valid.bool(), tail, first, haschg.bool()
 
 
@@ -613,11 +698,13 @@ def finalize_windows_native(cops: CurveOps, host_group, ws, cbits: int,
 def finalize_windows(cops: CurveOps, host_group, ws, cbits: int,
                      num_msms: int = 1):
     """Per-MSM host points of a window-sum stack: the native epilogue,
-    else the plain one."""
+    else the plain one.  The readback has drained the card, so the scan
+    tally is folded into the record here (fold_scan_tally)."""
     out = finalize_windows_native(cops, host_group, ws, cbits, num_msms)
     if out is None:
         with span("epilogue.readback"):
             per_msm = window_sums_to_host(cops, ws, num_msms)
         with span("epilogue.horner"):
             out = [finalize_msm(host_group, pts, cbits) for pts in per_msm]
+    fold_scan_tally(ws.device)
     return out

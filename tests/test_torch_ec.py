@@ -13,7 +13,9 @@ from gpu_groth16_prover_3x_tpu.curves.constants import MNT4753, MNT6753, R
 from gpu_groth16_prover_3x_tpu.host import ec as JHE
 from gpu_groth16_prover_3x_tpu_torch.curves.constants import CURVES
 from gpu_groth16_prover_3x_tpu_torch.ops import limbs as L
-from gpu_groth16_prover_3x_tpu_torch.ops.ec import get_curve_ops
+from gpu_groth16_prover_3x_tpu_torch.ops.ec import (from_limb_point,
+                                                    get_curve_ops,
+                                                    to_limb_point)
 from gpu_groth16_prover_3x_tpu_torch.ops.group_kernels import (ec_add, ec_dbl,
                                                                ec_mixed_add)
 from gpu_groth16_prover_3x_tpu_torch.ops.msm import (proj_to_host,
@@ -153,3 +155,73 @@ def test_add_dbl_vs_jax_curve_ops(curve, group):
     for i in range(n):
         assert hg.equal(ps[i], js[i])
         assert hg.equal(pd[i], jd[i])
+
+
+def xyzz_of(cops, words, z):
+    """Affine word points (2*deg, 24, n) and nonzero limbs z (32, deg, n)
+    -> the XYZZ points (x z^2, y z^3, z^2, z^3)."""
+    F = cops.F
+    xy = to_limb_point(words, cops.deg)
+    zz, = F.mul_many([(z, z)])
+    zzz, = F.mul_many([(zz, z)])
+    X, Y = F.mul_many([(xy[:, 0], zz), (xy[:, 1], zzz)])
+    return torch.stack([X, Y, zz, zzz], 1)
+
+
+def xyzz_to_host(cops, hg, A):
+    return to_host(cops, hg, from_limb_point(cops.xyzz_to_proj(A)))
+
+
+@pytest.mark.parametrize("curve,group", GROUPS, ids=IDS)
+def test_xyzz_formulas_vs_host(curve, group):
+    """The bucket scan's XYZZ formulas (ops/ec.py CurveOps.xyzz_*) against
+    the host group law, on accumulators with a random z: the mixed add,
+    the doubling of the row where the accumulator equals it (lane 1), the
+    identity where it is the row's negation (lane 2), the row where it is
+    the identity (lane 3), the accumulator where the row is infinite
+    (lanes 4, 5), and the conversion to projective words with the
+    identity as (0 : 1 : 0)."""
+    n = 6
+    hg, P, Q = point_sets(curve, group, n, 14)
+    cops = get_curve_ops(CURVES[curve.name], group)
+    deg, p, F = cops.deg, curve.fq.p, cops.F
+    P[0] = hg.mul(5, Q[0])           # a generic sum
+    P[1] = Q[1] = hg.mul(3, Q[5])    # acc = next
+    P[2], Q[2] = hg.neg(Q[3]), Q[3]  # acc = -next
+    Q[3] = P[4]                      # acc = identity (set below)
+    Q[4] = Q[5] = hg.zero            # an infinity row
+    P[5] = hg.zero
+    rng = np.random.default_rng(15)
+    z = to_limb_point(torch.from_numpy(np.stack([
+        L.ints_to_words([int(v) for v in rng.integers(1, 1 << 62, n)])
+        for _ in range(deg)])), deg)[:, 0]                 # (32, deg, n)
+    A = xyzz_of(cops, to_words([q if not hg.is_zero(q) else Q[0]
+                                for q in P], hg, deg, p, ncoord=2), z)
+    ident = cops.xyzz_identity((n,), A.device)
+    is_id = torch.tensor([hg.is_zero(q) for q in P])
+    is_id[3] = True
+    A = torch.where(is_id, ident, A)
+    row = to_limb_point(to_words(Q, hg, deg, p, ncoord=2), deg)
+    x2, y2 = row[:, 0], row[:, 1]
+    inf = F.is_zero(y2)
+    assert inf.tolist() == [False] * 4 + [True] * 2
+    acc = [hg.zero if bool(is_id[i]) else P[i] for i in range(n)]
+
+    out, eq = cops.xyzz_mixed_add(A, x2, y2)
+    assert eq[:4].tolist() == [False, True, False, False]
+    assert F.is_zero(out[:, 2])[2] and F.is_zero(out[:, 3])[2]
+    got = xyzz_to_host(cops, hg, out)
+    assert hg.equal(got[0], hg.add(acc[0], Q[0]))
+    assert hg.is_zero(got[2])
+    dbl = xyzz_to_host(cops, hg, cops.xyzz_affine_dbl(x2, y2))
+    for i in range(4):
+        assert hg.equal(dbl[i], hg.dbl(Q[i])), i
+
+    total, took = cops.xyzz_add_row(A, x2, y2, inf)
+    assert took.tolist() == [False, True, False, False, False, False]
+    got = xyzz_to_host(cops, hg, total)
+    for i in range(n):
+        assert hg.equal(got[i], hg.add(acc[i], Q[i])), i
+    words = from_limb_point(cops.xyzz_to_proj(total))
+    idw = from_limb_point(cops.identity((n,), A.device))
+    assert torch.equal(words[..., [2, 5]], idw[..., [2, 5]])

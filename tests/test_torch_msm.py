@@ -175,6 +175,79 @@ def test_scan_plain_emits_run_totals():
     assert bool(chg[0])
 
 
+GROUPS = [(MNT4753, "g1"), (MNT4753, "g2"), (MNT6753, "g1"),
+          (MNT6753, "g2")]
+
+
+@pytest.mark.parametrize("curve,group", GROUPS,
+                         ids=["mnt4-g1", "mnt4-g2", "mnt6-g1", "mnt6-g2"])
+def test_scan_plain_xyzz_edges(curve, group):
+    """The scan's contract on a hand-made chunk of the benchmark's kind of
+    rows, k * G with k = 3 + 7j (k 3, 10, 17, 24; row 4 at infinity):
+
+      step  0  1   2    3    4   5    6   7
+      key   1  1   2    2    2   2    5   5
+      row   3  3  10  -10   17  inf  24  24
+
+    Run 1 meets its own row (acc = next: the doubling) and totals 6 G
+    (first); run 2 meets the negation of its row (acc = -next: the
+    identity), then adds a row to the identity and an infinity row, and
+    emits 17 G; run 3 doubles again (tail 48 G).  Two chunks, the second
+    the first's key-shifted copy, so the warp tally counts one warp (both
+    chunks in it) at each doubling and each conversion."""
+    hg = JHE.g1_group(curve) if group == "g1" else JHE.g2_group(curve)
+    gen = (JHE.g1_generator(curve) if group == "g1"
+           else JHE.g2_generator(curve))
+    cops = get_curve_ops(CURVES[curve.name], group)
+    pts = [hg.mul(k, gen) for k in (3, 10, 17, 24)] + [hg.zero]
+    rows = rows_of(hg, pts, cops.deg, curve.fq.p)
+    col = [[0], [0], [1], [1], [2], [4], [3], [3]]
+    key = [[1], [1], [2], [2], [2], [2], [5], [5]]
+    idx = torch.tensor(col, dtype=torch.int32).repeat(1, 2)
+    keys = torch.tensor(key, dtype=torch.int32) + torch.tensor([[0, 9]],
+                                                               dtype=torch.int32)
+    signs = torch.zeros((8, 2), dtype=torch.bool)
+    signs[3] = True
+    t0 = M.scan_tally("cpu")
+    em, valid, tail, first, chg = M.msm_scan(cops, rows, idx, keys, signs)
+    t1 = M.scan_tally("cpu")
+    assert (t1[0] - t0[0], t1[1] - t0[1]) == (2, 2)
+
+    def host(words):
+        return [M.proj_to_host(hg, q) for q in
+                M.window_sums_to_host(cops, words)[0]]
+    assert valid.tolist() == [[False] * 2] * 5 + [[True] * 2, [False] * 2]
+    for b in range(2):
+        assert hg.equal(host(em[:, :, 5])[b], pts[2])
+        assert hg.equal(host(first)[b], hg.mul(6, gen))
+        assert hg.equal(host(tail)[b], hg.mul(48, gen))
+    assert chg.tolist() == [True, True]
+
+
+def test_scan_tally_folds_into_the_record():
+    """The scans' branch tallies reach the program's record at the
+    readback (finalize_windows) as `#msm.scan_dbl` and
+    `#msm.scan_convert`, once: a second readback adds nothing."""
+    from gpu_groth16_prover_3x_tpu_torch.utils import profiling as TP
+    curve = MNT4753
+    hg, sc, pts = fixtures(curve, "g1", 16, 9)
+    cops = get_curve_ops(CURVES[curve.name], "g1")
+    rows = rows_of(hg, pts, 1, curve.fq.p)
+    keys = torch.from_numpy(L.ints_to_words(sc))
+    M.fold_scan_tally("cpu")            # what earlier scans left unfolded
+    TP.clear_laps()
+    t0 = M.scan_tally("cpu")
+    with TP.span("proof", root=True):
+        ws = M.msm_window_sums(cops, keys, rows, 8, 4, signed=True)
+        t1 = M.scan_tally("cpu")
+        got, = M.finalize_windows(cops, hg, ws, 4)
+        M.finalize_windows(cops, hg, ws, 4)
+    laps = TP.last_laps()
+    assert laps["#msm.scan_convert"] == t1[1] - t0[1] > 0
+    assert laps["#msm.scan_dbl"] == t1[0] - t0[0]
+    assert hg.equal(got, oracle(hg, sc, pts))
+
+
 @pytest.mark.slow
 @pytest.mark.parametrize("signed", [False, True])
 def test_msm_vs_jax_window_sums(signed):
