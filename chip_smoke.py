@@ -114,7 +114,7 @@ Phases (any failure exits non-zero before the result line):
      stream are timed (CUDA events) beside each MSM lap, and the first
      scan of each MSM in a second host-resident proof is held against
      the plain scan.  11c: prove_sharded at world 2 on gloo with each
-     rank's G1 rows in host memory, MNT6753 2^15 in global blocks of
+     rank's G1 and B2 rows in host memory, MNT6753 2^15 in global blocks of
      2^16: every rank's proof equals phase 4's, and each rank's streamed
      MSMs got keys, rows and segment ids at one width that their block
      grid covers exactly (nothing padded again).  11d: an MNT4753 proof
@@ -1706,8 +1706,7 @@ def _rank_proof(rank, curve_name, params_path, input_path,
     t0 = time.time()
     with CollectiveTimer() as coll, UploadTimer() as uploads, \
             opcount.collect() as tally:
-        proof = prove_sharded(curve, params, inputs, device=DEV,
-                              verbose=True, **options)
+        proof = prove_sharded(curve, params, inputs, device=DEV, **options)
         torch.cuda.synchronize()
     wall = time.time() - t0
     launches = counts()
@@ -2087,7 +2086,7 @@ def host_resident_phase(run4) -> dict:
 
 
 def rank_host_resident(rank, files6) -> dict:
-    """11c: prove_sharded with each rank's G1 rows in host memory, with
+    """11c: prove_sharded with each rank's G1 and B2 rows in host memory, with
     what each streamed MSM got (PAS.StreamedWidths)."""
     with PAS.StreamedWidths() as widths:
         r = _rank_proof(rank, "MNT6753", *files6,

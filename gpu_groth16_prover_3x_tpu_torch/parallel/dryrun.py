@@ -25,8 +25,7 @@ def prove_rank(rank, curve_name, params, inputs, device) -> dict:
     for k in COUNTERS:
         k.launches = 0
     t0 = time.perf_counter()
-    proof = prove_sharded(CURVES[curve_name], params, inputs, device=device,
-                          verbose=True)
+    proof = prove_sharded(CURVES[curve_name], params, inputs, device=device)
     seconds = time.perf_counter() - t0
     return dict(rank=rank, proof=proof, seconds=seconds,
                 launches={k.name: k.launches for k in COUNTERS})

@@ -185,20 +185,19 @@ def card_used_bytes():
 class Child:
     """What every child (and every rank of a sharded run) does: a mark of
     the device and host memory at each phase boundary of the prover
-    module `target` (models/gpu_prover by default), and a host copy of H
-    each time it computes it (the known logs of C are taken with the
-    proof's own H).  A mark's host figures are this process's and those
-    of tree_root's process tree."""
+    (models/gpu_prover's blocks, whose ProverSession every rank runs), and
+    a host copy of H each time it computes it (the known logs of C are
+    taken with the proof's own H).  A mark's host figures are this
+    process's and those of tree_root's process tree."""
 
-    def __init__(self, target=None, tree_root=None, prefix: str = ""):
+    def __init__(self, tree_root=None, prefix: str = ""):
         import torch
         sys.path.insert(0, ROOT)
         from gpu_groth16_prover_3x_tpu_torch.models import gpu_prover as GP
         self.torch, self.GP = torch, GP
         self.tree_root, self.prefix = tree_root or os.getpid(), prefix
         self.marks, self.h_std = [], []
-        target = target or GP
-        leave, compute_h = target.leave_block, target.compute_h
+        leave, compute_h = GP.leave_block, GP.compute_h
 
         def leave_and_mark(name):
             leave(name)
@@ -208,7 +207,7 @@ class Child:
             out = compute_h(*args)
             self.h_std.append(out[1].cpu().numpy())
             return out
-        target.leave_block, target.compute_h = leave_and_mark, keep_h
+        GP.leave_block, GP.compute_h = leave_and_mark, keep_h
         torch.cuda.reset_peak_memory_stats()
 
     def mark(self, label: str) -> None:
@@ -1056,7 +1055,7 @@ def sharded_rank(rank: int, name: str, workdir: str) -> dict:
     domain slice."""
     world, log2, _, files = SHARDED[name]
     from gpu_groth16_prover_3x_tpu_torch.parallel import prover as PP
-    ch = Child(PP, os.getppid(), f"rank {rank}/{world} ")
+    ch = Child(os.getppid(), f"rank {rank}/{world} ")
     torch, GP = ch.torch, ch.GP
     import torch.distributed as dist
     from gpu_groth16_prover_3x_tpu_torch.curves.constants import MNT4753
@@ -1091,7 +1090,7 @@ def sharded_rank(rank: int, name: str, workdir: str) -> dict:
     with CollectiveTimer() as coll, UploadTimer() as up, \
             KernelTimer({"msm_scan": (M, "msm_scan")}) as scan, \
             StreamedWidths() as widths, opcount.collect() as tally:
-        proof = PP.prove_sharded(curve, params, inputs, verbose=True)
+        proof = PP.prove_sharded(curve, params, inputs)
         torch.cuda.synchronize()
     wall = time.time() - t1
     launches = {n: k.launches for n, k in counters.items()}

@@ -181,13 +181,13 @@ def test_prove_sharded_streamed_in_global_blocks():
 
 def test_prove_sharded_host_resident_rows():
     """resident_bytes = 0 and block_points = 48: each rank keeps its G1
-    rows in host memory and uploads them a block at a time, in global
-    blocks of 24 points a rank, while its B2 rows stay on the device (as
-    in the JAX package); the proof keeps the committed sha, with more
+    and B2 rows in host memory, as a one-device session does past
+    resident_bytes, and uploads them a block at a time, in global blocks
+    of 24 points a rank; the proof keeps the committed sha, with more
     bucket-scan calls on each rank than in the one pass."""
     outs = run(ranks.prove_rank, 2, "MNT4753", "cpu", None, None, 48, 0)
     assert [o["sha"] for o in outs] == [committed_sha("MNT4753")] * 2
-    assert [o["rows"] for o in outs] == [["host", "device"]] * 2
+    assert [o["rows"] for o in outs] == [["host", "host"]] * 2
     one_pass = sharded_proof("MNT4753", 2)
     assert [o["rows"] for o in one_pass] == [["device", "device"]] * 2
     assert all(o["scans"] > p["scans"] for o, p in zip(outs, one_pass))

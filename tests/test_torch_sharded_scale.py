@@ -89,16 +89,17 @@ def rank_parts(p, world: int, rank: int):
 def test_sharded_rows_staged_once(world, resident_bytes):
     """block_points = 48: each rank holds one G1 array and one B2 array,
     each equal to pad_rows(concatenate(parts)) at the width of its block
-    grid (host numpy for G1 with resident_bytes = 0; B2 always on the
-    device); every sharded MSM gets keys, rows and segment ids of that
+    grid (both host numpy with resident_bytes = 0, as in a one-device
+    session); every sharded MSM gets keys, rows and segment ids of that
     one width, so the streamed MSM pads nothing again; the proof keeps
-    the committed sha256 on every rank."""
+    the committed sha256 on every rank.  At world 1 the rank stages what
+    a one-device ProverSession stages: byte-equal G1 and B2 arrays and
+    segment ids, the same chunk and window, and the same block grid."""
     p = GP.load_params(os.path.join(FIX, "MNT4753-parameters"), MNT4753)
     outs = proof_ranks(world, BLOCK, resident_bytes)
     for rank, o in enumerate(outs):
         assert o["sha"] == committed_sha("MNT4753")
-        assert o["rows"] == ["host" if resident_bytes == 0 else "device",
-                             "device"]
+        assert o["rows"] == ["host" if resident_bytes == 0 else "device"] * 2
         assert len(o["staged"]) == 2
         for parts, held, msm in zip(rank_parts(p, world, rank), o["staged"],
                                     o["msms"]):
@@ -117,6 +118,18 @@ def test_sharded_rows_staged_once(world, resident_bytes):
             nblk, per = M.block_grid(width, chunk, blk)
             assert nblk * per == width        # no pad in the streamed MSM
         assert o["msms"][0]["seg"] == o["msms"][0]["keys"]
+    if world == 1:
+        sess = GP.ProverSession(MNT4753, p, "cpu", block_points=BLOCK,
+                                resident_bytes=resident_bytes)
+        o, = outs
+        for held, rows in zip(o["staged"], (sess.g1_rows, sess.b2_rows)):
+            assert np.array_equal(held, np.asarray(rows))
+        assert np.array_equal(o["seg_ids"][0], sess.seg.numpy())
+        assert o["seg_ids"][1] is None
+        assert [(m["chunk"], m["c"]) for m in o["msms"]] == \
+            [(sess.chunk_s, sess.c)] * 2
+        assert [(m["rows"], m["walked"]) for m in o["msms"]] == \
+            [(sess.n_pad, sess.block_points), (sess.n2_pad, sess.block_points)]
 
 
 def test_block_points_env_is_the_argument():

@@ -19,7 +19,7 @@ from gpu_groth16_prover_3x_tpu_torch.models import gpu_prover as GP
 from gpu_groth16_prover_3x_tpu_torch.ops import msm
 from gpu_groth16_prover_3x_tpu_torch.ops.ec import get_curve_ops
 from gpu_groth16_prover_3x_tpu_torch.ops.msm import combine_window_sums
-from gpu_groth16_prover_3x_tpu_torch.parallel import multihost, prover
+from gpu_groth16_prover_3x_tpu_torch.parallel import multihost
 from gpu_groth16_prover_3x_tpu_torch.parallel.prover import prove_sharded
 from gpu_groth16_prover_3x_tpu_torch.parallel import sharded
 from gpu_groth16_prover_3x_tpu_torch.parallel.sharded import (
@@ -83,10 +83,10 @@ def prove_rank(rank, curve_name, device, params=None, inputs=None,
     with resident_bytes; returns the affine proof, the proof file's
     sha256, this rank's op tally, its number of bucket-scan calls, where
     the rows of each of its two MSMs lay ("host" for numpy in host
-    memory, else "device"), the arrays prover.stage_rows staged (numpy)
-    and, per MSM, the widths of its keys, rows and segment ids, its
-    chunk, the global block it was given and the block the streamed MSM
-    walked."""
+    memory, else "device"), the arrays gpu_prover.stage_rows staged and
+    the segment ids of each MSM (numpy, None for none) and, per MSM, the
+    widths of its keys, rows and segment ids, its chunk and window, the
+    global block it was given and the block the streamed MSM walked."""
     curve = CURVES[curve_name]
     if params is None:
         params = GP.load_params(os.path.join(
@@ -100,16 +100,18 @@ def prove_rank(rank, curve_name, device, params=None, inputs=None,
         scans.append(1)
         return scan(*args)
     msm.msm_scan = counted
-    where, msms, staged = [], [], []
-    sharded_msm = prover.sharded_msm_window_sums
+    where, msms, staged, seg_ids = [], [], [], []
+    sharded_msm = GP.sharded_msm_window_sums
     streamed = sharded.msm_window_sums_streamed
-    stage_rows = prover.stage_rows
+    stage_rows = GP.stage_rows
 
     def located(cops, keys, rows, chunk_s, c, seg, *args, **kwargs):
         where.append("host" if isinstance(rows, np.ndarray) else "device")
         msms.append(dict(keys=keys.shape[1], rows=rows.shape[0],
                          seg=None if seg is None else seg.shape[0],
-                         chunk=chunk_s, block_points=kwargs["block_points"]))
+                         chunk=chunk_s, c=c,
+                         block_points=kwargs["block_points"]))
+        seg_ids.append(None if seg is None else seg.cpu().numpy())
         return sharded_msm(cops, keys, rows, chunk_s, c, seg, *args,
                            **kwargs)
 
@@ -122,9 +124,9 @@ def prove_rank(rank, curve_name, device, params=None, inputs=None,
         staged.append(out if isinstance(out, np.ndarray) else
                       out.cpu().numpy())
         return out
-    prover.sharded_msm_window_sums = located
+    GP.sharded_msm_window_sums = located
     sharded.msm_window_sums_streamed = walked
-    prover.stage_rows = kept
+    GP.stage_rows = kept
     try:
         with opcount.collect() as tally:
             proof = prove_sharded(curve, params, inputs, device=device,
@@ -132,16 +134,16 @@ def prove_rank(rank, curve_name, device, params=None, inputs=None,
                                   resident_bytes=resident_bytes)
     finally:
         msm.msm_scan = scan
-        prover.sharded_msm_window_sums = sharded_msm
+        GP.sharded_msm_window_sums = sharded_msm
         sharded.msm_window_sums_streamed = streamed
-        prover.stage_rows = stage_rows
+        GP.stage_rows = stage_rows
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "proof")
         ser.write_output(out, curve, *proof)
         with open(out, "rb") as f:
             sha = hashlib.sha256(f.read()).hexdigest()
     return dict(proof=proof, sha=sha, tally=tally, scans=len(scans),
-                rows=where, msms=msms, staged=staged)
+                rows=where, msms=msms, staged=staged, seg_ids=seg_ids)
 
 
 def one_rank_comm(rank):
