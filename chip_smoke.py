@@ -233,8 +233,10 @@ INT32_MAD_PER_S = 33.5e12 / 2
 # One 24-word CIOS: 2 * 24^2 word products, each a low and a high 32-bit
 # multiply-add.
 MADS_PER_FQ_MUL = 2 * 2 * 24 * 24
-# Fq products per group op by extension degree (Karatsuba: Fq2 3, Fq3 6
-# per extension product; the b3 constant multiplies coefficient-wise).
+# Fq products per group op by extension degree (the multiply-adds of 3
+# per Fq2 product: its fused loop runs four product rows and two
+# reductions; Karatsuba's 6 per Fq3 product; the b3 constant multiplies
+# coefficient-wise).
 FQ_MULS = {"add": {1: 14, 2: 40, 3: 78}, "dbl": {1: 13, 2: 37, 3: 72},
            "mixed_add": {1: 13, 2: 37, 3: 72}}
 REPLACES = {

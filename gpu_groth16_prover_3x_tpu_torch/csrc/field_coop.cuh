@@ -32,6 +32,15 @@
 //    independent products run in one loop to hide the shuffle latency.
 //    The loop over the lanes that hold a_i is not unrolled, so a product
 //    is a few steps of code and a formula stays in the instruction cache.
+//  - Tower product over Fq2 (fq2_mul): no Karatsuba.  The coefficients
+//    c0 = a0 b0 + alpha a1 b1 and c1 = a0 b1 + a1 b0 are two sums of
+//    products in one CIOS loop: per word i the lanes broadcast a0_i and
+//    a1_i once and add both products into each of two accumulators, which
+//    then take their own m.  As many multiply-adds as Karatsuba's three
+//    products (six rows a step), but six shuffles a step against nine, two
+//    finishes against three, and no modular adds around the products:
+//    alpha b1 is formed once and left unreduced.  Over Fq3 the product
+//    stays Karatsuba, out of line.
 //  - Add, subtract, compare (coop_add, resolve): each lane adds its
 //    words; its carry out is a generate bit and "all my words are ones" a
 //    propagate bit; two ballots collect them, and the carries into the
@@ -337,7 +346,8 @@ __device__ __forceinline__ void cios_step(const Lane<P, T>& L,
 }
 
 // N independent Montgomery products r[n] = a[n] * b[n] / R mod p.  Every
-// a and b is read before any r is written, so r may alias them.
+// a and b is read before any r is written, so r may alias them.  Its
+// finish has a twin in acc_finish (below): change the two together.
 template <int N, int P, int T>
 __device__ __forceinline__ void fp_mul_n(const Lane<P, T>& L, Fp<T>* r,
                                          const Fp<T>* a, const Fp<T>* b) {
@@ -431,6 +441,92 @@ struct Ext {
   Fp<T> c[D];
 };
 
+// K * a as a 768-bit integer, not reduced (K a < K p < 2^768): each lane
+// multiplies its words, hands its carry word to the lane above, and one
+// resolve finishes.
+template <int K, int P, int T>
+__device__ __forceinline__ void fp_times(const Lane<P, T>& L, Fp<T>& r,
+                                         const Fp<T>& a) {
+  constexpr int W = NW / T;
+  uint32_t s[W], c = 0u;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const uint64_t x = (uint64_t)a.v[w] * K + c;
+    s[w] = (uint32_t)x;
+    c = (uint32_t)(x >> 32);
+  }
+  uint32_t cin = __shfl_up_sync(FULL, c, 1, T);
+  if (L.li == 0) cin = 0u;
+  s[0] = add_cc(s[0], cin);
+#pragma unroll
+  for (int w = 1; w < W; ++w) s[w] = addc_cc(s[w], 0u);
+  const uint32_t g = addc(0u, 0u);
+  resolve(L, s, g, 0u);
+#pragma unroll
+  for (int w = 0; w < W; ++w) r.v[w] = s[w];
+}
+
+// The end of a product, as fp_mul_n ends: merge the two accumulators,
+// fold the overflow words into the lane above, resolve, and subtract p
+// once (the sum is below 2p).  fp_mul_n keeps its own copy: calling this
+// one there moved ptxas's schedule of the G1 units.
+template <int P, int T>
+__device__ __forceinline__ void acc_finish(const Lane<P, T>& L, Fp<T>& r,
+                                           const Acc<NW / T>& t) {
+  constexpr int W = NW / T;
+  uint32_t u[W + 2];
+  u[0] = t.ev[0];
+  u[1] = add_cc(t.ev[1], t.od[0]);
+#pragma unroll
+  for (int j = 2; j <= W; ++j) u[j] = addc_cc(t.ev[j], t.od[j - 1]);
+  u[W + 1] = addc(t.ev[W + 1], t.od[W]);
+  uint32_t o0 = __shfl_up_sync(FULL, u[W], 1, T);
+  uint32_t o1 = __shfl_up_sync(FULL, u[W + 1], 1, T);
+  if (L.li == 0) o0 = o1 = 0u;
+  uint32_t s[W];
+  s[0] = add_cc(u[0], o0);
+  s[1] = addc_cc(u[1], o1);
+#pragma unroll
+  for (int j = 2; j < W; ++j) s[j] = addc_cc(u[j], 0u);
+  const uint32_t g = addc(0u, 0u);
+  resolve(L, s, g, 0u);
+  cond_sub_p(L, r, s);
+}
+
+// A product over Fq2 = Fq[v]/(v^2 - K) as two sums of products in one
+// cooperative CIOS loop: c0 = a0 b0 + a1 (K b1) and c1 = a0 b1 + a1 b0.
+// Per word i both accumulators take the same broadcast words a0_i and
+// a1_i, then each its own m (the CIOS step of its second row).  K b1
+// stays unreduced, so an accumulator stays below (K + 2) p < 2^768 and
+// ends below p (1 + (K + 1) p / R) < 2p: one subtract finishes each
+// coefficient.  Every input is read before r is written.
+template <int K, int P, int T>
+__device__ __forceinline__ void fq2_mul(const Lane<P, T>& L, Ext<T, 2>& r,
+                                        const Ext<T, 2>& a,
+                                        const Ext<T, 2>& b) {
+  constexpr int W = NW / T;
+  Fp<T> kb1;
+  fp_times<K>(L, kb1, b.c[1]);
+  Acc<W> t0 = {}, t1 = {};                  // c0, c1
+  // as in fp_mul_n: whole iterations bring the accumulators back in role
+  constexpr int LANES_PER_IT = (W % 2 == 0) ? 1 : 2;
+  static_assert(T % LANES_PER_IT == 0, "whole iterations");
+#pragma unroll 1
+  for (int src = 0; src < T; src += LANES_PER_IT) {   // the lanes that hold a_i
+#pragma unroll
+    for (int k = 0; k < LANES_PER_IT * W; ++k) {
+      const uint32_t a0 = __shfl_sync(FULL, a.c[0].v[k % W], src + k / W, T);
+      const uint32_t a1 = __shfl_sync(FULL, a.c[1].v[k % W], src + k / W, T);
+      mad_row<W>(t0, a1, kb1.v);
+      cios_step(L, t0, a0, b.c[0].v);
+      mad_row<W>(t1, a1, b.c[0].v);
+      cios_step(L, t1, a0, b.c[1].v);
+    }
+  }
+  acc_finish(L, r.c[0], t0);
+  acc_finish(L, r.c[1], t1);
+}
+
 // The field and curve operations of one group configuration, on T lanes.
 template <int CFG, int T>
 struct Ops {
@@ -479,7 +575,8 @@ struct Ops {
     for (int i = 0; i < D; ++i) fp_select(r.c[i], c, a.c[i], b.c[i]);
   }
 
-  // One tower product: Karatsuba with the non-residue folded in
+  // One tower product: over Fq2 two sums of products in one loop
+  // (fq2_mul), over Fq3 Karatsuba with the non-residue folded in
   // (ops/field.py mul_many).  Every input is read before r is written.
   static __device__ __forceinline__ void mul(const Ln& L, El& r, const El& a,
                                              const El& b) {
@@ -498,16 +595,7 @@ struct Ops {
     if constexpr (D == 1) {
       fp_mul_n<1>(L, r.c, a.c, b.c);
     } else if constexpr (D == 2) {
-      F x[3], y[3], t[3], s;
-      x[0] = a.c[0]; y[0] = b.c[0];
-      x[1] = a.c[1]; y[1] = b.c[1];
-      fp_add(L, x[2], a.c[0], a.c[1]);
-      fp_add(L, y[2], b.c[0], b.c[1]);
-      fp_mul_list<3>(L, t, x, y);
-      fp_small<AL>(L, s, t[1]);
-      fp_add(L, r.c[0], t[0], s);
-      fp_add(L, s, t[0], t[1]);
-      fp_sub(L, r.c[1], t[2], s);
+      fq2_mul<AL>(L, r, a, b);
     } else {
       F x[6], y[6], t[6], s;
       x[0] = a.c[0]; y[0] = b.c[0];
@@ -536,8 +624,9 @@ struct Ops {
   }
 
   // Two or three independent tower products.  Over Fq they share one
-  // cooperative loop; over a tower each product is already a batch.  No
-  // result may be an operand of a later product of the same call.
+  // cooperative loop; over a tower each product is already a batch (two
+  // Fq2 products in one loop spilled).  No result may be an operand of a
+  // later product of the same call.
   static __device__ __forceinline__ void mul2(const Ln& L, El& r0,
                                               const El& a0, const El& b0,
                                               El& r1, const El& a1,

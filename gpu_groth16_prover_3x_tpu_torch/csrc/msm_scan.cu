@@ -54,9 +54,10 @@
 // state is registers only and 12 warps are resident (8 for Fq3): the
 // step settles the new X and ZZ after its third layer and fetches the
 // next row there, which keeps the live set under the register cap (158
-// registers; fetching at the top of the step took 162-166 and ran 4 %
-// slower over G1).  Every lane of a warp runs the same instructions
-// (every shuffle names the whole warp); only the stores are conditional.
+// registers for G1, 150 for Fq2; fetching at the top of the step took
+// 162-166 and ran 4 % slower over G1).  Every lane of a warp runs the
+// same instructions (every shuffle names the whole warp); only the stores
+// are conditional.
 //
 // Memory access: the T lanes of a group read the 24 consecutive words of
 // each coefficient of the chunk's next row together (one to two 128-byte
