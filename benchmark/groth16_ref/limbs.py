@@ -118,10 +118,15 @@ def batch_inverse(F: Field, x: torch.Tensor) -> torch.Tensor:
 
 # -- exact integer arithmetic on 16-bit limbs ---------------------------------------
 
-def words_to_u16(words: np.ndarray, device) -> torch.Tensor:
-    """(24, n) int32 words (u32 bit patterns) -> (n, 48) int64 16-bit
-    limbs, least significant first."""
-    w = torch.from_numpy(np.ascontiguousarray(words)).to(device)
+def words_to_u16(words: np.ndarray, device,
+                 cols: slice = slice(None)) -> torch.Tensor:
+    """Columns `cols` of (24, n) int32 words (u32 bit patterns) -> (k, 48)
+    int64 16-bit limbs, least significant first.  Each word row goes to
+    the device alone, so a block of columns takes no host copy."""
+    src = torch.from_numpy(words)[:, cols]
+    w = torch.empty(src.shape, dtype=torch.int32, device=device)
+    for j in range(src.shape[0]):
+        w[j].copy_(src[j])
     w = w.to(torch.int64) & 0xFFFFFFFF
     return torch.stack([w & 0xFFFF, w >> 16], 1).reshape(48, -1).t()
 
@@ -133,6 +138,16 @@ def limbs_to_u16(x: torch.Tensor) -> torch.Tensor:
     u = torch.stack([lo & 0xFFFF, (lo >> 16) | ((hi & 0xFF) << 8),
                      hi >> 8], 1)
     return u.reshape(48, -1).t()
+
+
+def pack16(u: torch.Tensor) -> torch.Tensor:
+    """16-bit limbs (values below 2^16) -> their bit patterns in int16."""
+    return (u - ((u & 0x8000) << 1)).to(torch.int16)
+
+
+def unpack16(x: torch.Tensor) -> torch.Tensor:
+    """int16 bit patterns (pack16) -> 16-bit limbs in int64."""
+    return x.to(torch.int64) & 0xFFFF
 
 
 def product_u16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -23,9 +23,14 @@ NTT and no MSM.  The other queries tile known multiples, so their logs
 are sums of the witness by class.
 
 Each sum of products is exact integer arithmetic (limbs.dot, float64
-matrix products of 16-bit limbs) on the given device; the points are the
-generators times the logs (algebra.Group.mul_gen).  `Reference.expect`
-returns the proof file's bytes.
+matrix products of 16-bit limbs) on the given device, formed BLOCK_COLS
+columns at a time: a block's omega^i as omega^lo times the first
+block's, its lambda_i from an inverse over the block alone, its input
+words converted alone.  The two tables are kept between inputs as
+16-bit limbs in int16 (192 bytes a column), so the device holds them
+and one block's temporaries at any size.  The points are the generators
+times the logs (algebra.Group.mul_gen).  `Reference.expect` returns the
+proof file's bytes.
 """
 
 import numpy as np
@@ -33,6 +38,8 @@ import torch
 
 from . import algebra, keys, limbs
 from .curves import R, CurveParams, get_root_of_unity
+
+BLOCK_COLS = 1 << 20        # columns of the H sums at a time
 
 
 def class_sum(words: np.ndarray, shift: int, nb: int = keys.NBASE) -> list:
@@ -69,11 +76,22 @@ class Reference:
         self.omega = get_root_of_unity(curve.fr, n)
         self.g = curve.fr.multiplicative_generator
         F = limbs.Field(fr, self.device)
-        om = limbs.power_table(F, self.omega * R % fr, n)
-        diff = limbs.sub(F, F.const(self.t * R % fr, n), om)
-        lam = limbs.mont_mul(F, om, limbs.batch_inverse(F, diff))
-        self.om16 = limbs.limbs_to_u16(om)           # R * omega^i
-        self.lam16 = limbs.limbs_to_u16(lam)         # R * lambda_i
+        self.block = blk = min(BLOCK_COLS, n)       # powers of two
+        t_m = F.const(self.t * R % fr, blk)
+        base = limbs.power_table(F, self.omega * R % fr, blk)
+        # int16 bit patterns of the 16-bit limbs of R * omega^i and
+        # R * lambda_i
+        self.om16 = torch.empty((n, 48), dtype=torch.int16,
+                                device=self.device)
+        self.lam16 = torch.empty_like(self.om16)
+        for lo in range(0, n, blk):
+            om = limbs.mont_mul(F, base, F.const(
+                pow(self.omega, lo, fr) * R % fr, blk))    # R * omega^(lo+i)
+            inv = limbs.batch_inverse(F, limbs.sub(F, t_m, om))
+            lam = limbs.mont_mul(F, om, inv)
+            self.om16[lo:lo + blk] = limbs.pack16(limbs.limbs_to_u16(om))
+            self.lam16[lo:lo + blk] = limbs.pack16(limbs.limbs_to_u16(lam))
+            del om, inv, lam            # one block's temporaries at a time
         self.g1, self.g2 = algebra.g1(curve), algebra.g2(curve)
 
     def logs(self, values) -> dict:
@@ -103,17 +121,24 @@ class Reference:
     def h_log(self, ca, cb, cc) -> int:
         fr = self.curve.fr.p
         n, t, g = self.sz["n"], self.t, self.g
-        dev = self.device
-        a, b, c = (limbs.words_to_u16(x, dev) for x in (ca, cb, cc))
-        s_lam = {k: limbs.dot(x, self.lam16) for k, x in
-                 (("a", a), ("b", b), ("c", c))}
-        s_om_c = limbs.dot(c, self.om16)
-        s_lam_ab = s_om_ab = 0
+        dev, blk = self.device, self.block
+        s_lam = dict.fromkeys("abc", 0)
+        s_om_c = s_lam_ab = s_om_ab = 0
         step = 4 * limbs.BLOCK_ROWS              # rows of a * b at a time
-        for lo in range(0, n, step):
-            ab = limbs.product_u16(a[lo:lo + step], b[lo:lo + step])
-            s_lam_ab += limbs.dot(ab, self.lam16[lo:lo + step])
-            s_om_ab += limbs.dot(ab, self.om16[lo:lo + step])
+        for lo in range(0, n, blk):
+            cols = slice(lo, lo + blk)
+            a, b, c = (limbs.words_to_u16(x, dev, cols)
+                       for x in (ca, cb, cc))
+            lam = limbs.unpack16(self.lam16[cols])
+            om = limbs.unpack16(self.om16[cols])
+            for k, x in (("a", a), ("b", b), ("c", c)):
+                s_lam[k] += limbs.dot(x, lam)
+            s_om_c += limbs.dot(c, om)
+            for r in range(0, blk, step):
+                ab = limbs.product_u16(a[r:r + step], b[r:r + step])
+                s_lam_ab += limbs.dot(ab, lam[r:r + step])
+                s_om_ab += limbs.dot(ab, om[r:r + step])
+            del a, b, c, lam, om, ab    # one block's temporaries at a time
         # the words are R * x and the tables R * lambda, R * omega^i
         r2, r3 = pow(R * R, -1, fr), pow(R ** 3, -1, fr)
         SA, SB, SC = (s_lam[k] * r2 % fr for k in "abc")

@@ -6,10 +6,11 @@
 Set-up (counted in setup_s, from process start): the keys' distinct rows
 (groth16_ref/keys.py), the mix's entry (entries.py: a ProverSession, or
 the files and the table file in a work directory), the first input and
-one warm-up proof, then the rest of the inputs.  The window is a closed
-loop of one caller: the next proof starts when the last returns, until
---seconds have passed; a proof started before then is finished and
-counted, and the window ends at the last completion.  Then the program's
+one warm-up proof, then the rest of the inputs (pool_size: at most
+POOL_MAX_BYTES of them).  The window is a closed loop of one caller:
+the next proof starts when the last returns, until --seconds have
+passed; a proof started before then is finished and counted, and the
+window ends at the last completion.  Then the program's
 state is freed and every proof of the window is judged against the
 reference (groth16_ref/proof.py): its bytes must equal the expected
 proof's.  The metrics are the readers' (benchmark/metrics/) over the run
@@ -20,6 +21,7 @@ torch.profiler trace of the window and reports the per-layer metrics.
 import gc
 import json
 import math
+import resource
 import sys
 import time
 from contextlib import ExitStack
@@ -34,6 +36,7 @@ from . import entries, spec, trace
 
 BANNED = ("jax", "jaxlib", "flax", "gpu_groth16_prover_3x_tpu")
 CONTROLS = ("h-off-by-one",)
+POOL_MAX_BYTES = 40e9       # host bytes of the input pool, at most
 
 
 def banned_modules() -> list:
@@ -106,6 +109,18 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def pool_size(factor: float, seconds: float, warm: float,
+              input_bytes: int) -> tuple:
+    """(inputs, capped): the pool's inputs, the warm-up's among them:
+    enough fresh witnesses for proofs `factor` times as fast as the
+    warm-up over the window, but no more than POOL_MAX_BYTES hold (and
+    never under 2); `capped` when that cap binds.  A window that needs
+    more inputs than the pool holds starts over."""
+    want = math.ceil(factor * seconds / max(warm, 1e-3)) + 2
+    cap = max(2, int(POOL_MAX_BYTES // input_bytes))
+    return min(want, cap), want > cap
+
+
 def setup(cell: Cell):
     """The mix's entry with its inputs, warmed up on input 0."""
     from gpu_groth16_prover_3x_tpu_torch.utils.profiling import \
@@ -136,10 +151,13 @@ def setup(cell: Cell):
         entry.prove(0)                              # warm-up
         _sync(cell.device)
         warm = lap("set-up: the warm-up proof")
-        # enough fresh witnesses for proofs pool_window_factor times as
-        # fast as the warm-up; a window that needs more starts over
-        count = math.ceil(cell.mix["pool_window_factor"] * cell.seconds
-                          / max(warm, 1e-3)) + 1
+        size = sum(x.nbytes for x in entry.values[0][:4])   # w, ca, cb, cc
+        total, capped = pool_size(cell.mix["pool_window_factor"],
+                                  cell.seconds, warm, size)
+        if capped:
+            log(f"set-up: the input pool is capped at {total} inputs of "
+                f"{size} B by POOL_MAX_BYTES = {POOL_MAX_BYTES:.0f}")
+        count = total - 1
         entry.add_inputs([stream.next() for _ in range(count)])
         lap(f"set-up: {count} more inputs")
     return entry
@@ -243,10 +261,15 @@ def run_cell(cell: Cell, bench: dict, t_start: float) -> dict:
             log(f"card: {run['trace']['peaks'][2]}")
     log("latencies (s): " + " ".join(
         f"{p['latency_s']:.4f}" for p in run["proofs"]))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     checks = judge(cell, run, values)
+    peak = (f", card peak {torch.cuda.max_memory_allocated(dev)} B"
+            if dev.type == "cuda" else "")
     log(f"judged {len(run['proofs'])} proofs against the reference in "
-        f"{time.perf_counter() - t0:.3f} s")
+        f"{time.perf_counter() - t0:.3f} s{peak}; host peak RSS "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss} KiB")
     attempted = len(run["proofs"])
     failed = checks["proofs_missing"]["value"]
     correct = (attempted > 0

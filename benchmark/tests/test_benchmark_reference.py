@@ -1,5 +1,6 @@
 """The reference's proof equals the port's on the CPU route, at 2^4 to
-2^6, for both curves, by Pippenger and by the Straus tables."""
+2^6, for both curves, by Pippenger and by the Straus tables; its sums in
+column blocks equal its sums in one block."""
 
 import numpy as np
 import pytest
@@ -90,3 +91,22 @@ def test_batch_inverse_and_powers():
     for i in range(16):
         x = limbs.limbs_to_int(inv[:, i]) * pow(R, -1, p) % p
         assert x * pow(5, i, p) % p == 1
+
+
+@pytest.mark.parametrize("seed", [2 ** 33 + 5, 17])
+@pytest.mark.parametrize("with_top_h", [False, True])
+@pytest.mark.parametrize("name", ["MNT4753", "MNT6753"])
+def test_blocked_sums_equal_one_block(monkeypatch, name, with_top_h, seed):
+    """The H sums in blocks of 2^3 columns at 2^8 (32 blocks, each with
+    its own power table from omega^lo and its own inverse) give the logs
+    and the proof bytes of one block over all 2^8 columns."""
+    torch.set_num_threads(2)
+    rc, log2 = curves.CURVES[name], 8
+    v = keys.InputStream(rc, log2, seed, "cpu").next()
+    got = {}
+    for blk in (1 << 3, 1 << log2):
+        monkeypatch.setattr(proof, "BLOCK_COLS", blk)
+        ref = proof.Reference(rc, log2, "cpu", with_top_h=with_top_h)
+        assert ref.block == blk
+        got[blk] = (ref.logs(v), ref.expect(v))
+    assert got[1 << 3] == got[1 << log2]

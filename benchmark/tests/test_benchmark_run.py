@@ -1,6 +1,7 @@
 """run.py without a card, and what the benchmark may import."""
 
 import ast
+import math
 import os
 import shutil
 import subprocess
@@ -42,6 +43,36 @@ def test_run_fails_with_only_its_own_files(tmp_path):
     done = _run(tmp_path, env)
     assert done.returncode != 0
     assert done.stdout == ""
+
+
+# (cell, log2, warm-up proof s, inputs in the pool, capped): the warm-ups
+# of the cells' runs on an H100 and of the 2^25 proof; the control's
+# warm-up is the reference's own proof at 2^24
+POOLS = [("mnt6753-2p15.serve", 15, 0.797, 79, False),
+         ("mnt6753-2p15.serve", 15, 1.274, 51, False),
+         ("mnt4753-2p20.serve", 20, 2.179, 31, False),
+         ("mnt4753-2p24.serve", 24, 24.268, 5, False),
+         ("mnt4753-2p25.serve", 25, 51.67, 3, True),
+         ("mnt4753-2p24.serve --control", 24, 5.3, 6, True)]
+
+
+@pytest.mark.parametrize("name,log2,warm,inputs,capped", POOLS)
+def test_pool_is_capped_by_bytes(name, log2, warm, inputs, capped):
+    """The pool holds ceil(1.2 * 51 s / warm-up) + 2 inputs (w, ca, cb,
+    cc: 96 * (4n + 1) bytes each) unless POOL_MAX_BYTES holds fewer: the
+    five cells keep their counts, and 2^25 and the 2^24 control are
+    capped."""
+    n = 1 << log2
+    size = 96 * (4 * n + 1)
+    want = math.ceil(1.2 * 51 / warm) + 2
+    assert cell.pool_size(1.2, 51, warm, size) == (inputs, capped)
+    assert (inputs == want) is not capped
+    assert inputs * size <= cell.POOL_MAX_BYTES
+
+
+def test_pool_keeps_two_inputs_past_the_cap():
+    """The warm-up's input and one more, whatever one input weighs."""
+    assert cell.pool_size(1.2, 51, 1.0, 10 ** 12) == (2, True)
 
 
 def test_banned_modules_compare_whole_top_level_names(monkeypatch):
